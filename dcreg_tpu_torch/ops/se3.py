@@ -1,0 +1,126 @@
+"""SO(3)/SE(3) manifold math (counterpart of ``dcreg_tpu/ops/se3.py``).
+
+Plain tensor functions, batched over leading dimensions.  Conventions are
+the JAX module's: tangent ordering ``[omega(3), v(3)]``, ``boxplus`` is the
+right retraction ``(R exp(w), t + R v)``, Euler poses compose Z * Y * X.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def skew(v):
+    """Skew-symmetric matrix of a 3-vector."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], z, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], z], dim=-1),
+    ], dim=-2)
+
+
+def exp_so3(omega):
+    """Exponential map so(3) -> SO(3), Rodrigues."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    small = theta2 < 1e-10
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    K = skew(omega)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2_safe)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def log_so3(R):
+    """Logarithm map SO(3) -> so(3); near pi the axis comes from the
+    diagonal of (R + I) / 2."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    sin_t = torch.sin(theta)
+    small = theta < 1e-6
+    near_pi = theta > math.pi - 1e-3
+    odd = small | near_pi
+    factor = torch.where(
+        odd, torch.full_like(theta, 0.5),
+        theta / (2.0 * torch.where(odd, torch.ones_like(sin_t), sin_t)))
+    w_generic = torch.stack([
+        R[..., 2, 1] - R[..., 1, 2],
+        R[..., 0, 2] - R[..., 2, 0],
+        R[..., 1, 0] - R[..., 0, 1],
+    ], dim=-1) * factor[..., None]
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) * 0.5, min=0.0))
+    s12 = R[..., 1, 0] + R[..., 0, 1]
+    s13 = R[..., 2, 0] + R[..., 0, 2]
+    ax = axis[..., 0]
+    ay = torch.where(s12 < 0, -axis[..., 1], axis[..., 1])
+    az = torch.where(s13 < 0, -axis[..., 2], axis[..., 2])
+    w_pi = torch.stack([ax, ay, az], dim=-1) * theta[..., None]
+    return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def se3_matrix(R, t):
+    """4x4 homogeneous matrix from (R, t)."""
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def boxplus(R, t, delta):
+    """Right retraction: (R exp(w), t + R v)."""
+    omega, v = delta[..., :3], delta[..., 3:]
+    R_new = R @ exp_so3(omega)
+    t_new = t + torch.einsum('...ij,...j->...i', R, v)
+    return R_new, t_new
+
+
+def orthonormalize(R):
+    """Project a nearly-orthonormal matrix back onto SO(3) (Gram-Schmidt on
+    rows).  A constant-velocity chain squares any scale/shear defect every
+    frame; one projection per prediction pins it at rounding level."""
+    r0 = R[..., 0, :]
+    r0 = r0 / torch.linalg.norm(r0, dim=-1, keepdim=True)
+    r1 = R[..., 1, :]
+    r1 = r1 - torch.sum(r0 * r1, dim=-1, keepdim=True) * r0
+    r1 = r1 / torch.linalg.norm(r1, dim=-1, keepdim=True)
+    r2 = torch.linalg.cross(r0, r1, dim=-1)
+    return torch.stack([r0, r1, r2], dim=-2)
+
+
+def euler_zyx_to_rot(roll, pitch, yaw):
+    """R = Rz(yaw) Ry(pitch) Rx(roll); angles are tensors of one shape."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+                    dim=-1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+                    dim=-1),
+        torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+    ], dim=-2)
+
+
+def pose_error(T_gt, T_est, degrees: bool = True):
+    """Translation / rotation error of T_est against T_gt: the error pose
+    is T_gt^-1 T_est; returns (|t_err|, angle of R_err)."""
+    R_gt, t_gt = se3_from_matrix(T_gt)
+    R_est, t_est = se3_from_matrix(T_est)
+    R_err = R_gt.transpose(-1, -2) @ R_est
+    t_err = torch.einsum('...ji,...j->...i', R_gt, t_est - t_gt)
+    trans_error = torch.linalg.norm(t_err, dim=-1)
+    trace = R_err[..., 0, 0] + R_err[..., 1, 1] + R_err[..., 2, 2]
+    ang = torch.abs(torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)))
+    if degrees:
+        ang = ang * (180.0 / math.pi)
+    return trans_error, ang

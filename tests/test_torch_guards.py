@@ -1,0 +1,134 @@
+"""Guards of the port: no JAX anywhere in it, no silent CPU fallback, and
+a K1 wrapper that raises rather than falls back when the kernel cannot be
+built."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dcreg_tpu_torch.models import icp_batch as tib
+from dcreg_tpu_torch.models import odometry as todo
+from dcreg_tpu_torch.models.icp import ICPParams
+from dcreg_tpu_torch.ops import block_knn as tk
+from dcreg_tpu_torch.ops import block_sparse as tbs
+from dcreg_tpu_torch.ops import degeneracy as tdeg
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "dcreg_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "dcreg_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_imports_ast(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [] if node.level else [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}: imports {bad}"
+
+
+def test_no_jax_in_sys_modules():
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in PORT_FILES]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'dcreg_tpu')]\n"
+              "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).uniform(-1, 1, (300, 3)).astype(
+        np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbs.build_block_index(pts, tb=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbs.build_map_index(pts, tb=128, sb=4)
+    mi = tbs.build_map_index(pts, tb=128, sb=4, device="cpu")
+    R0 = np.eye(3, dtype=np.float32)[None]
+    t0 = np.zeros((1, 3), np.float32)
+    det = tdeg.DetectionMethod.SCHUR_CONDITION_NUMBER
+    hand = tdeg.HandlingMethod.PRECONDITIONED_CG
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tib.icp_batch_so3(pts, pts, R0, t0, det, hand, ICPParams(), mi.block,
+                          64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        todo.run_odometry_map(pts[None], mi, pts, num_supers=2,
+                              max_per_query=4, num_pairs=64)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        tbs.build_block_index(pts, tb=128, device="cuda")
+    # explicit CPU runs
+    out = tib.icp_batch_so3(pts, pts, R0, t0, det, hand,
+                            ICPParams(max_iterations=2), mi.block, 64,
+                            device="cpu")
+    assert out.R.device.type == "cpu"
+
+
+def test_tf32_guard(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    pts = np.zeros((10, 3), np.float32)
+    bi = tbs.build_block_index(pts, tb=128, device="cpu")
+    with pytest.raises(RuntimeError, match="TF32"):
+        tib.icp_batch_so3(pts, pts, np.eye(3)[None], np.zeros((1, 3)),
+                          tdeg.DetectionMethod.SCHUR_CONDITION_NUMBER,
+                          tdeg.HandlingMethod.PRECONDITIONED_CG,
+                          ICPParams(), bi, 64, device="cpu")
+
+
+def _device_inputs(device):
+    nq, B, P = 2, 3, 4
+    e = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+    return (e(nq, 3, 128), e(5, 3, 128), e(B, 12),
+            torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=device),
+            e(P, dt=torch.int32), e(P, dt=torch.int32))
+
+
+def test_k1_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """A tensor that is not on the CPU never reaches the plain version:
+    with no kernel library to be had, the wrapper raises.  ("meta"
+    tensors stand in for CUDA tensors on a machine without a card.)"""
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tk.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tk.os.path, "exists", lambda p: False)
+    tk._library.cache_clear()
+    before = tk.block_knn_keys.launches
+    args = _device_inputs("meta")
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tk.block_knn_keys(*args, None, 11, 1.0, 1.1)
+        monkeypatch.setattr(tk, "CSRC", tmp_path / "missing.cu")
+        with pytest.raises(FileNotFoundError):
+            tk.block_knn_keys(*args, None, 11, 1.0, 1.1)
+        # argument checks run before any build
+        bad = list(args)
+        bad[2] = bad[2].to(torch.float64)
+        with pytest.raises(TypeError):
+            tk.block_knn_keys(*bad, None, 11, 1.0, 1.1)
+    finally:
+        tk._library.cache_clear()
+    assert tk.block_knn_keys.launches == before
+    # the same call on CPU tensors takes the plain version and counts no
+    # kernel launch
+    keys = tk.block_knn_keys(*_device_inputs("cpu"), None, 11, 1.0, 1.1)
+    assert keys.shape == (2, 3, 8, 128)
+    assert tk.block_knn_keys.launches == before
