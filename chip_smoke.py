@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed 7]
 
-Builds the K1 kernel from csrc/ (nvcc, sm_90a), then runs on the card:
+Builds every kernel from csrc/ (one nvcc per source, in parallel,
+sm_90a), then runs on the card:
 
   1. K1 against its plain PyTorch twin, keys bit for bit, at the main
      path's three shapes: (a) map mode, B=1, slot-local ids, no mask;
@@ -17,20 +18,36 @@ Builds the K1 kernel from csrc/ (nvcc, sm_90a), then runs on the card:
   4. a B=128 BlockIndex-mode batch on a 16,384-point neighbourhood of
      frame 0, gated on convergence and zero overflow, and rerun with
      the plain K1 forced (per-lane iterations equal, poses within 1e-5);
-  5. the ``kernels`` line with K1's launches on the paths above.
+  5. K2 and K3 against their plain twins, bit for bit, at (d) the 5-NN
+     self query of the 8,192-point cylinder, (e) its nn1, (f) 65,536
+     points with 30% of the targets invalid, where ``knn_grouped`` must
+     also return what ``knn`` returns;
+  6. the pair harness: the five SO(3) rows of configs/cylinder.yaml
+     through the port's TestRunner (f32) on the 8,192-point synthetic
+     cylinder (source == target), once with the CSR grid search and once
+     with K2 as every iteration's 5-NN, gated on Ours converging with
+     TE < 5 cm and RE < 0.5 deg and flagging a degenerate direction at
+     iteration 0, finite rows, every artifact written, and the two
+     backends agreeing per method (iterations within 1, poses within
+     1e-4 m and 1e-3 deg: the final poses of a method that converged on
+     both, the poses after iteration 10 of any other);
+  7. the ``kernels`` line: K1, K2 and K3 with their launches on each
+     path, times, bounds and library times.
 
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
 exits non-zero.  Without a CUDA device it exits non-zero at once.  The
-world, trajectory and scans are made from ``--seed`` in numpy.
+worlds, trajectory and scans are made from ``--seed`` in numpy.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +62,7 @@ PROFILE_FRAMES = 8
 # odometry-loop cull bound and reuse margin; Monte-Carlo batch radii
 R_CULL0, REUSE_MARGIN = 0.18, 0.12
 MC_CULL0, MC_MARGIN = 0.25, 0.2
+PAIR_POINTS = 8192
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -282,6 +300,297 @@ def check_k1(name, a):
 
 
 # --------------------------------------------------------------------------
+# K2 and K3: the pair-mode brute-force k-NN kernels
+# --------------------------------------------------------------------------
+
+def synthetic_cylinder(seed, n=PAIR_POINTS):
+    """The pair harness's world: the upper part (z > -2) of a cylinder of
+    radius 3 m along y, 24 m long, whose radius undulates by 3 cm with a
+    6 m period along the axis, and a floor strip at z = -2,
+    |x| < 1.8, clear of the wall (15% of the points).  The undulation is
+    the only thing that pins the axial translation, weakly; the floor
+    pins the rotation about the axis.  (n, 3) f32."""
+    rng = np.random.default_rng(seed)
+    radius, length, period, amp = 3.0, 24.0, 6.0, 0.03
+    n_floor = int(0.15 * n)
+    n_wall = n - n_floor
+    y = rng.uniform(-length / 2, length / 2, n_wall)
+    # angles of the wall above the floor plane: sin(th) > -2 / 3
+    lo = np.arcsin(-2.0 / radius)
+    th = rng.uniform(lo, np.pi - lo, n_wall)
+    r = radius + amp * np.sin(2.0 * np.pi * y / period)
+    wall = np.column_stack([r * np.cos(th), y, r * np.sin(th)])
+    floor = np.column_stack([rng.uniform(-1.8, 1.8, n_floor),
+                             rng.uniform(-length / 2, length / 2, n_floor),
+                             np.full(n_floor, -2.0)])
+    pts = np.vstack([wall, floor]) + rng.normal(0.0, 0.002, (n, 3))
+    return pts.astype(np.float32)
+
+
+def knn_bound(n, m, out_bytes):
+    """Least time for one K2 or K3 call: the larger of 10 f32 operations
+    per (query, target) pair (3 sub, 3 mul, 3 add, 1 min) over the f32
+    rate and the bytes (queries, targets and penalties read once, the
+    output written once) over the memory rate."""
+    nbytes = n * 12 + m * 16 + out_bytes
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 10.0 * n * m / H100_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs_nm": n * m, "bytes": int(nbytes)}
+
+
+def check_knn(name, query, target, valid, k, kk):
+    """K2 and K3 against their plain twins on the card, bit for bit on
+    (val, idx) and on the group minima; times of both kernels, their
+    twins, and for K2 the nearest library pair (cdist + topk)."""
+    from dcreg_tpu_torch.ops import knn_kernels as kn
+    n, m = query.shape[0], target.shape[0]
+    pen = kn._penalty(m, valid, query.device)
+    val, idx = kn.knn_candidates(query, target, pen, kk)
+    val_p, idx_p = kn.knn_candidates_plain(query, target, pen, kk)
+    gmin = kn.group_min(query, target, pen)
+    gmin_p = kn.group_min_plain(query, target, pen)
+    torch.cuda.synchronize()
+    bits = lambda x: x.view(torch.int32)
+    k2_bad = int((bits(val) != bits(val_p)).sum() + (idx != idx_p).sum())
+    k3_bad = int((bits(gmin) != bits(gmin_p)).sum())
+    k2_err = float((val - val_p).abs().max())
+    k3_err = float((gmin - gmin_p).abs().max())
+    if k2_bad or k3_bad:
+        raise RuntimeError(f"{name}: K2 differs from its plain version in "
+                           f"{k2_bad} entries, K3 in {k3_bad}")
+    def lib():
+        # cdist's launch refuses 65,536 x 65,536 outputs, so the library
+        # pair runs over query chunks of 8,192 rows
+        for c0 in range(0, n, 8192):
+            torch.topk(torch.cdist(
+                query[c0:c0 + 8192], target,
+                compute_mode="donot_use_mm_for_euclid_dist"), k, dim=1,
+                largest=False)
+    k2 = {"ms": time_ms(lambda: kn.knn_candidates(query, target, pen, kk),
+                        20),
+          "plain_ms": time_ms(lambda: kn.knn_candidates_plain(
+              query, target, pen, kk), 2),
+          "library_ms": time_ms(lib, 1), "max_abs_err": k2_err,
+          "mismatches": k2_bad}
+    k2.update(knn_bound(n, m, n * kk * 8))
+    k3 = {"ms": time_ms(lambda: kn.group_min(query, target, pen), 20),
+          "plain_ms": time_ms(lambda: kn.group_min_plain(query, target,
+                                                          pen), 2),
+          "library_ms": None, "max_abs_err": k3_err, "mismatches": k3_bad}
+    k3.update(knn_bound(n, m, gmin.numel() * 4))
+    emit({"phase": "knn_check", "shape": name, "N": n, "M": m, "k": k,
+          "kk": kk, "invalid_targets": 0 if valid is None
+          else int((~valid).sum()), "K2": k2, "K3": k3})
+    return k2, k3
+
+
+def knn_checks(seed, T0, device):
+    """K2 and K3 at the shapes of the pair path: (d) the 5-NN self query
+    of the 8,192-point cylinder, (e) nn1 of the cylinder moved by the
+    initial pose T0 against itself, (f) 65,536 points with 30% of the targets
+    invalid, where knn_grouped must also return what knn returns."""
+    from dcreg_tpu_torch.ops import knn_kernels as kn
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    cyl = f32(synthetic_cylinder(seed))
+    moved = cyl @ f32(T0[:3, :3]).T + f32(T0[:3, 3])
+    big = synthetic_cylinder(seed + 1, 65536)
+    rng = np.random.default_rng(seed + 2)
+    big_q = f32(big + rng.normal(0.0, 0.05, big.shape))
+    valid = torch.as_tensor(rng.uniform(size=65536) >= 0.3, device=device)
+    rows = {"d_self_5nn": check_knn("d_self_5nn", cyl, cyl, None, 5, 10),
+            "e_nn1": check_knn("e_nn1", moved, cyl, None, 1, 8),
+            "f_65k_invalid": check_knn("f_65k_invalid", big_q, f32(big),
+                                       valid, 5, 10)}
+    kn.group_min.launches = 0
+    dg, ig = kn.knn_grouped(big_q, f32(big), valid, k=5)
+    k3_launches = kn.group_min.launches
+    dk, ik = kn.knn(big_q, f32(big), valid, k=5, kk=10)
+    same = bool(torch.equal(ig, ik)) and bool(torch.equal(dg, dk))
+    emit({"phase": "knn_grouped_check", "shape": "f_65k_invalid",
+          "equal_to_knn": same, "k3_launches": k3_launches})
+    if not same:
+        raise RuntimeError("knn_grouped differs from knn at (f)")
+    return rows, k3_launches
+
+
+# --------------------------------------------------------------------------
+# The pair harness: the method matrix of configs/cylinder.yaml
+# --------------------------------------------------------------------------
+
+CYLINDER_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "cylinder.yaml")
+SO3_ROWS = ("ME-SR", "ME-TSVD", "ME-TReg", "FCN-SR", "Ours")
+ARTIFACTS = ("statistics_summary.txt", "complete_log.txt", "all_results.csv",
+             "iteration_history.csv", "iteration_details_with_dx.csv",
+             "transform_details.csv", "iteration_timing_provenance.csv",
+             "condition_numbers_detailed.csv", "pcg.txt",
+             "degeneracy_analysis_first_iter.txt",
+             "degeneracy_analysis_last_iter.txt")
+
+
+def cylinder_config():
+    from dcreg_tpu_torch.config import load_config, select_methods
+    return select_methods(load_config(CYLINDER_YAML), SO3_ROWS)
+
+
+def pair_harness(world, backend, device):
+    """The five SO(3) rows of configs/cylinder.yaml through the port's
+    TestRunner (f32) on ``world`` (source == target), with the CSR grid
+    (``backend`` "grid") or K2 (``backend`` "brute") as every
+    iteration's 5-NN, into a temporary folder.  Returns the per-method
+    summary and the K2 launches of the run."""
+    import csv
+    from dcreg_tpu_torch.harness import TestRunner
+    from dcreg_tpu_torch.ops import knn_kernels as kn
+    out = tempfile.mkdtemp(prefix=f"dcreg_pair_{backend}_")
+    try:
+        cfg = cylinder_config()._replace(output_folder=out,
+                                         use_grid_index=backend == "grid")
+        runner = TestRunner(cfg, dtype=torch.float32, device=device)
+        per_method = {}
+        t0 = time.perf_counter()
+        kn.knn_candidates.launches = 0
+        runner.load_point_clouds(world, world)
+        for name, det, hand in cfg.methods():
+            before = kn.knn_candidates.launches
+            runner.run_method(name, det, hand)
+            per_method[name] = kn.knn_candidates.launches - before
+        runner.finalize_statistics()
+        runner.save_results()
+        launches = kn.knn_candidates.launches
+        seconds = time.perf_counter() - t0
+        missing = [f for f in ARTIFACTS
+                   if not os.path.isfile(os.path.join(out, f))
+                   or os.path.getsize(os.path.join(out, f)) == 0]
+        with open(os.path.join(out, "all_results.csv")) as f:
+            rows = list(csv.DictReader(f))
+        finite = {r["Method"]: all(np.isfinite(float(v))
+                                   for k, v in r.items() if k != "Method")
+                  for r in rows}
+        summary = {}
+        for rec in runner.records:
+            s = runner.stats[rec.method]
+            summary[rec.method] = {
+                "iterations": rec.n_iters, "converged": rec.converged,
+                "te_m": s["trans_error_mean"], "re_deg": s["rot_error_mean"],
+                "time_mean_ms": s["time_mean"],
+                "k2_launches": per_method[rec.method],
+                "mask_iter0": [int(m) for m in
+                               rec.result.log.degenerate_mask[0]],
+                "finite_rows": finite.get(rec.method, False),
+                "record": rec}
+        emit({"phase": f"pair_harness_{backend}", "points": len(world),
+              "seconds": seconds, "k2_launches": launches,
+              "missing_artifacts": missing,
+              "methods": {m: {k: v for k, v in d.items() if k != "record"}
+                          for m, d in summary.items()}})
+        ours = summary["Ours"]
+        if missing or not all(d["finite_rows"] for d in summary.values()) \
+                or not (ours["converged"] and ours["te_m"] < 0.05
+                        and ours["re_deg"] < 0.5 and any(ours["mask_iter0"])):
+            raise RuntimeError(f"pair harness ({backend}) gates failed")
+        if backend == "brute" and launches <= 0 and device != "cpu":
+            raise RuntimeError("K2 was not launched by the brute-force run")
+        det, hand = dict((m, (d, h)) for m, d, h in cfg.methods())["Ours"]
+        emit(profile_window(f"pair_ours_profile_{backend}",
+                            lambda: runner.run_single_test("Ours", det,
+                                                           hand)))
+        return summary, launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+# a method that does not converge on both backends is compared after this
+# many iterations (or its last, if fewer), not at the iteration limit
+AGREE_ITERS = 10
+
+
+def backend_agreement(a, b):
+    """How far one method's runs on the grid and the brute-force backend
+    (``a``, ``b``: records with ``n_iters``, ``converged`` and the log's
+    per-iteration ``transform``) lie apart, and whether that passes: the
+    iterations within 1, the poses within 1e-4 m and 1e-3 deg.
+
+    The grid orders near-tie neighbours by a packed key, K2 by exact
+    distance, so the plane fits round differently; a method that
+    converges settles both runs on one pose, but one that runs to the
+    iteration limit creeps along its weak direction and carries the
+    difference on.  A method that converged on both backends is compared
+    at its final poses, any other at iteration ``AGREE_ITERS``."""
+    both = bool(a.converged) and bool(b.converged)
+    if both:
+        ka, kb = a.last_iter(), b.last_iter()
+    else:
+        ka = kb = max(min(AGREE_ITERS, a.n_iters, b.n_iters) - 1, 0)
+    A = np.asarray(a.result.log.transform[ka], np.float64)
+    B = np.asarray(b.result.log.transform[kb], np.float64)
+    out = {"iterations": [int(a.n_iters), int(b.n_iters)],
+           "compared_at": "final" if both else f"iteration {ka + 1}",
+           "dt_m": float(np.linalg.norm(A[:3, 3] - B[:3, 3])),
+           "dang_deg": rotation_angle_deg(A[:3, :3].T @ B[:3, :3])}
+    out["ok"] = (abs(out["iterations"][0] - out["iterations"][1]) <= 1
+                 and out["dt_m"] < 1e-4 and out["dang_deg"] < 1e-3)
+    return out
+
+
+def rotation_angle_deg(R):
+    """Angle of a rotation from its skew and trace parts together (exact
+    near 0, where arccos of the trace alone loses half the digits)."""
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.degrees(np.arctan2(0.5 * np.linalg.norm(w),
+                                       0.5 * (np.trace(R) - 1.0))))
+
+
+def run_pair(seed: int, device: str = "cuda"):
+    """Phases 5 and 6: K2 and K3 against their plain twins, then the
+    method matrix on both search backends.  Returns the K2 and K3 entries of the
+    ``kernels`` line."""
+    T0 = cylinder_config().initial_matrix()
+    rows, k3_launches = knn_checks(seed, T0, device)
+    world = synthetic_cylinder(seed)
+    grid, k2_grid = pair_harness(world, "grid", device)
+    brute, k2_brute = pair_harness(world, "brute", device)
+    diffs = {m: backend_agreement(grid[m]["record"], brute[m]["record"])
+             for m in SO3_ROWS}
+    emit({"phase": "pair_backends_agree", "methods": diffs})
+    bad = [m for m, d in diffs.items() if not d["ok"]]
+    if bad:
+        raise RuntimeError(f"grid and brute-force backends disagree: {bad}")
+    d = rows["d_self_5nn"]
+    launches = {"pair_grid_metrics": k2_grid, "pair_brute": k2_brute}
+    k2 = {"name": "K2 knn_candidates", "route": "cuda",
+          "source": "dcreg_tpu_torch/csrc/knn.cu",
+          "replaces": "dcreg_tpu/ops/pallas_knn.py:47",
+          "launches": k2_grid + k2_brute, "launches_by_path": launches,
+          "launches_per_method_run": {
+              "grid": {m: grid[m]["k2_launches"] for m in SO3_ROWS},
+              "brute": {m: brute[m]["k2_launches"] for m in SO3_ROWS}},
+          "max_abs_err": max(r[0]["max_abs_err"] for r in rows.values()),
+          "ms": d[0]["ms"], "plain_ms": d[0]["plain_ms"],
+          "bound_ms": d[0]["bound_ms"], "bound_by": d[0]["bound_by"],
+          "library_ms": d[0]["library_ms"],
+          "library": "torch.cdist + torch.topk (two calls)",
+          "shapes": {k: {f: v[0][f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}
+                     for k, v in rows.items()}}
+    f = rows["f_65k_invalid"][1]
+    k3 = {"name": "K3 group_min", "route": "cuda",
+          "source": "dcreg_tpu_torch/csrc/knn.cu",
+          "replaces": "dcreg_tpu/ops/pallas_knn.py:196",
+          "launches": k3_launches,
+          "launches_by_path": {"knn_grouped_check_f": k3_launches},
+          "max_abs_err": max(r[1]["max_abs_err"] for r in rows.values()),
+          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+          "bound_by": f["bound_by"], "library_ms": None,
+          "shapes": {k: {g: v[1][g] for g in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")}
+                     for k, v in rows.items()}}
+    return k2, k3
+
+
+# --------------------------------------------------------------------------
 
 def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch.models.icp import ICPParams
@@ -453,11 +762,11 @@ def run(seed: int, device: str = "cuda"):
             and same_iters and pose_diff <= 1e-5):
         raise RuntimeError(f"BlockIndex batch gates failed: {row}")
 
-    # ---- 5. kernels ------------------------------------------------------
+    # ---- K1's entry of the kernels line (phase 7) -------------------------
     if min(launches.values()) <= 0:
         raise RuntimeError(f"K1 not launched on every path: {launches}")
     a = rows["a_map_B1_slotted_nomask"]
-    emit({"kernels": [{
+    return {
         "name": "K1 block_knn_keys", "route": "cuda",
         "source": "dcreg_tpu_torch/csrc/block_knn.cu",
         "replaces": "dcreg_tpu/ops/pallas_block_knn.py:91",
@@ -469,7 +778,37 @@ def run(seed: int, device: str = "cuda"):
         "library_ms": None,
         "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "pairs", "B")}
-                   for k, v in rows.items()}}]})
+                   for k, v in rows.items()}}
+
+
+def build_kernels():
+    """Build every CUDA source at once (one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dcreg_tpu_torch.ops import block_knn, knn_kernels
+    mods = {"block_knn.cu": block_knn, "knn.cu": knn_kernels}
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futures = {name: ex.submit(m.build_library)
+                   for name, m in mods.items()}
+        for name, fut in futures.items():
+            b = fut.result()
+            emit({"phase": "build", "source": name, "seconds": b["seconds"],
+                  "library": os.path.relpath(b["path"]),
+                  "ptxas": ptxas_summary(b["log"])})
+
+
+def ptxas_summary(log):
+    """Registers, spills and shared memory of each kernel in a ptxas -v
+    log."""
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
 
 
 def main():
@@ -479,16 +818,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from dcreg_tpu_torch.ops.block_knn import build_library
-    build = build_library()
-    emit({"phase": "build", "seconds": build["seconds"],
-          "library": os.path.relpath(build["path"]),
-          "ptxas": build["log"][-600:]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    run(args.seed)
+    build_kernels()
+    k1 = run(args.seed)
+    k2, k3 = run_pair(args.seed)
+    emit({"kernels": [k1, k2, k3]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

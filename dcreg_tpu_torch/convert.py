@@ -16,6 +16,7 @@ from .models.icp import ICPParams
 from .ops.block_sparse import BlockIndex, MapIndex
 from .ops.correspondence import CorrespondenceParams
 from .ops.degeneracy import DegeneracyThresholds
+from .ops.voxel_grid import GridIndex
 from .utils import resolve_device
 
 
@@ -63,3 +64,17 @@ def icp_params(d) -> ICPParams:
     d["corr"] = correspondence_params(d["corr"])
     d["thresholds"] = degeneracy_thresholds(d["thresholds"])
     return ICPParams(**d)
+
+
+def grid_index_from_arrays(fields, device=None) -> GridIndex:
+    """GridIndex from {points, order, start, origin, dims, voxel_size,
+    cap}; the points keep their dtype."""
+    dev = resolve_device(device)
+    put = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    return GridIndex(points=put(fields["points"]),
+                     order=put(fields["order"]).long(),
+                     start=put(fields["start"]).long(),
+                     origin=put(fields["origin"]),
+                     dims=tuple(int(d) for d in fields["dims"]),
+                     voxel_size=float(fields["voxel_size"]),
+                     cap=int(fields["cap"]))

@@ -1,11 +1,13 @@
-"""Shared pieces of the point-to-plane ICP engines (counterpart of
-``dcreg_tpu/models/icp.py``; the pair-mode engine
-``icp_point_to_plane_so3`` is not ported yet).
+"""Point-to-plane ICP (counterpart of ``dcreg_tpu/models/icp.py``): the
+pair-mode SO(3) engine ``icp_point_to_plane_so3`` and the pieces it
+shares with the batched engine.
 
 Two-pass design as in the JAX module: the optimisation loop records a
 minimal per-iteration ``Hist`` (the 6x6 system plus scalar stats), and the
 full per-iteration telemetry is reconstructed from it afterwards as one
-batched pass over (lanes, iterations).
+batched pass over the iterations (and the lanes, in the batched engine).
+The JAX ``while_loop`` is a Python loop here, with one host sync per
+iteration on (converged | aborted).
 """
 from __future__ import annotations
 
@@ -14,9 +16,12 @@ from typing import NamedTuple
 import torch
 
 from ..ops import linalg, se3
-from ..ops.correspondence import CorrespondenceParams
-from ..ops.degeneracy import DegeneracyThresholds, analyze
+from ..ops.correspondence import CorrespondenceParams, find_correspondences
+from ..ops.degeneracy import (DegeneracyThresholds, DetectionMethod,
+                              HandlingMethod, analyze)
+from ..ops.gauss_newton import build_system
 from ..ops.solvers import solve
+from ..utils import check_precise, resolve_device
 
 
 class ICPParams(NamedTuple):
@@ -99,6 +104,16 @@ def _empty_log(I, dtype, lead=(), device=None) -> IterationLog:
             fields[name] = torch.full(shape, float("nan"), dtype=dtype,
                                       device=device)
     return IterationLog(**fields)
+
+
+class ICPResult(NamedTuple):
+    R: torch.Tensor           # (3, 3) final rotation
+    t: torch.Tensor           # (3,) final translation
+    converged: torch.Tensor   # () bool
+    aborted: torch.Tensor     # () bool (too few points / non-finite dx)
+    iterations: torch.Tensor  # () int32
+    covariance: torch.Tensor  # (6, 6) repaired H^-1, 1e6 I unless converged
+    log: IterationLog         # (I, ...) fields
 
 
 class Hist(NamedTuple):
@@ -196,3 +211,84 @@ def covariance_from_H(H_last, converged, dtype):
     eye = torch.eye(6, dtype=dtype, device=H_last.device)
     return torch.where((converged & invertible)[..., None, None], cov,
                        1e6 * eye)
+
+
+def icp_point_to_plane_so3(source_xyz, target_xyz, R0, t0,
+                           detection: DetectionMethod,
+                           handling: HandlingMethod,
+                           params: ICPParams = ICPParams(),
+                           T_gt=None, target_valid=None, source_valid=None,
+                           num_source: int | None = None,
+                           grid=None, device=None) -> ICPResult:
+    """Run the SO(3) point-to-plane ICP of one frame pair to convergence.
+
+    source_xyz (N, 3) body frame, target_xyz (M, 3) map frame, (R0, t0)
+    initial pose; the dtype is the source's (f32 or f64).  ``grid``: the
+    search backend of ``find_correspondences`` (None = brute force, or a
+    GridIndex / BlockIndex built once per target).  The DCReg pair
+    (SCHUR_CONDITION_NUMBER, PRECONDITIONED_CG) takes the in-loop fast
+    path: closed-form 3x3 Schur spectra and Cholesky/PCG, the 6x6 spectra
+    only in the telemetry pass.  An iteration with fewer than
+    ``min_effective_points`` correspondences or a non-finite update
+    aborts without moving; convergence is tested after the update.  Runs
+    on ``device`` (cuda unless told otherwise)."""
+    check_precise()
+    dev = resolve_device(device)
+    as_dev = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)
+    source_xyz = torch.as_tensor(source_xyz, device=dev)
+    dtype = source_xyz.dtype
+    target_xyz = as_dev(target_xyz, dtype)
+    R, t = as_dev(R0, dtype), as_dev(t0, dtype)
+    T_gt = torch.eye(4, dtype=dtype, device=dev) if T_gt is None \
+        else as_dev(T_gt, dtype)
+    I = params.max_iterations
+    fast = (detection is DetectionMethod.SCHUR_CONDITION_NUMBER and
+            handling is HandlingMethod.PRECONDITIONED_CG)
+
+    hist = empty_hist(I, dtype, device=dev)
+    converged = torch.zeros((), dtype=torch.bool, device=dev)
+    aborted = torch.zeros((), dtype=torch.bool, device=dev)
+    k = 0
+    while k < I and not bool(converged | aborted):   # one host sync
+        corr = find_correspondences(source_xyz, R, t, target_xyz,
+                                    target_valid=target_valid,
+                                    source_valid=source_valid,
+                                    params=params.corr, chunk=params.chunk,
+                                    grid=grid)
+        sysm = build_system(source_xyz, R, t, corr, num_source=num_source,
+                            use_weight_derivative=params.use_weight_derivative,
+                            weight_slope=params.corr.weight_slope)
+        analysis = analyze(sysm.H, detection, params.thresholds, fast=fast)
+        dx, _ = solve(sysm.H, sysm.g, handling, analysis, params.thresholds,
+                      telemetry=False, fast=fast)
+        too_few = sysm.num_valid < params.min_effective_points
+        abort_now = too_few | ~torch.all(torch.isfinite(dx))
+        dx = torch.where(abort_now, 0.0, dx)
+        hist.R[k], hist.t[k], hist.H[k], hist.g[k] = R, t, sysm.H, sysm.g
+        hist.dx[k] = dx
+        hist.num_valid[k] = sysm.num_valid.to(torch.int32)
+        hist.rmse[k], hist.fitness[k] = sysm.rmse, sysm.fitness
+        hist.objective[k] = sysm.objective
+        R_new, t_new = se3.boxplus(R, t, dx)
+        R = torch.where(abort_now, R, R_new)
+        t = torch.where(abort_now, t, t_new)
+        converged = (torch.linalg.norm(dx[:3])
+                     < params.convergence_thresh_rot) & \
+            (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans) \
+            & ~abort_now
+        aborted = abort_now
+        k += 1
+    H_last = hist.H[max(k - 1, 0)]
+
+    if params.full_telemetry:
+        executed = torch.arange(I, device=dev) < k
+        log = telemetry_row(hist, executed, detection, handling,
+                            params.thresholds, params.min_effective_points,
+                            T_gt)
+    else:
+        log = _empty_log(I, dtype, device=dev)
+    cov = covariance_from_H(H_last, converged, dtype)
+    return ICPResult(R=R, t=t, converged=converged, aborted=aborted,
+                     iterations=torch.tensor(k, dtype=torch.int32,
+                                             device=dev),
+                     covariance=cov, log=log)

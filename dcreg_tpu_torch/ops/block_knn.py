@@ -21,16 +21,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import cuda_build
 from .block_sparse import BlockIndex
 
 TB = 128
@@ -41,9 +36,8 @@ BIG = 3.0e38
 MAX_INDEX_BITS = 18
 INIT_KEY = 0x7FFFFFFF
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc" / "block_knn.cu"
-BUILD_DIR = _PKG / "_build"
+CSRC = cuda_build.CSRC / "block_knn.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
 
 
 def _index_bits(num_cand: int) -> int:
@@ -63,38 +57,12 @@ def _index_bits(num_cand: int) -> int:
 # K1: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the K1 kernel cannot be built")
-    return path
-
-
 def build_library() -> dict:
-    """Compile ``csrc/block_knn.cu`` for sm_90a into a shared library under
-    ``_build/<source hash>/`` unless that file already exists.  Returns
-    {"path", "seconds", "log"} (log: nvcc/ptxas output of a fresh build)."""
-    src = CSRC.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    out_dir = BUILD_DIR / digest
-    lib = out_dir / "libdcreg_block_knn.so"
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "log": ""}
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp_{os.getpid()}.so"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": time.perf_counter() - t0,
-            "log": (proc.stdout + proc.stderr).strip()}
+    """Compile ``csrc/block_knn.cu`` with the shared nvcc command
+    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
+    Returns {"path", "seconds", "log"}."""
+    return cuda_build.build_library(CSRC, "dcreg_block_knn", "K1",
+                                    BUILD_DIR)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,5 @@
 """Block index over a spatially sorted target cloud (counterpart of
-``dcreg_tpu/ops/block_sparse.py``; the pair-mode ``block_knn`` is not
-ported yet).
+``dcreg_tpu/ops/block_sparse.py``).
 
 The builders run on the host in numpy, once per target cloud, and hand
 the finished arrays to the device.  ``blocks`` is coordinate-major
@@ -15,6 +14,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from .knn_kernels import _extract_k_smallest
 
 TB = 32    # default target block size (points)
 QB = 128   # query block size (points)
@@ -140,3 +140,68 @@ def build_map_index(sorted_points, dtype=torch.float32, tb: int = 128,
                     blk_lo_g=put(lo_g.reshape(ns, sb * 3)),
                     blk_hi_g=put(hi_g.reshape(ns, sb * 3)),
                     sb=int(sb), num_supers=int(ns))
+
+
+def suggest_num_blocks(index: BlockIndex, sample_queries, radius: float,
+                       margin: int = 4) -> int:
+    """Host-side estimate of ``block_knn``'s ``num_blocks``: the most
+    relevant target blocks of any sample query block, plus margin."""
+    q = np.asarray(sample_queries, np.float64).reshape(-1, 3)
+    n = q.shape[0]
+    nq = -(-n // QB)
+    qb = np.concatenate([q, np.repeat(q[-1:], nq * QB - n, axis=0)]
+                        ).reshape(nq, QB, 3)
+    qlo, qhi = qb.min(axis=1), qb.max(axis=1)
+    tlo = index.lo.cpu().numpy().astype(np.float64)
+    thi = index.hi.cpu().numpy().astype(np.float64)
+    gap = np.maximum(0.0, np.maximum(qlo[:, None] - thi[None, :],
+                                     tlo[None, :] - qhi[:, None]))
+    rel = (gap * gap).sum(-1) <= radius * radius
+    return int(rel.sum(axis=1).max()) + margin
+
+
+def block_knn(index: BlockIndex, query, radius: float, k: int = 5,
+              num_blocks: int = 16):
+    """Exact k-NN within ``radius`` by block culling.
+
+    query (N, 3) spatially sorted like the cloud the index was built from.
+    Each 128-point query block keeps its ``num_blocks`` nearest relevant
+    target blocks (bbox gap <= radius; lower block first on equal gaps)
+    and searches them densely with coordinate-wise distances.  Returns
+    (sq_dists (N, k) ascending, idx (N, k) int64 into the sorted target,
+    overflow () = query blocks with more relevant blocks than kept)."""
+    n = query.shape[0]
+    G = min(num_blocks, index.num_blocks)
+    nq = -(-n // QB)
+    qb = torch.cat([query, query[-1:].expand(nq * QB - n, 3)]).reshape(
+        nq, QB, 3)
+    qlo, qhi = torch.amin(qb, dim=1), torch.amax(qb, dim=1)
+    gap = torch.clamp(torch.maximum(qlo[:, None] - index.hi[None, :],
+                                    index.lo[None, :] - qhi[:, None]),
+                      min=0.0)
+    d_bb = torch.sum(gap * gap, dim=-1)                       # (nq, nbt)
+    relevant = d_bb <= radius * radius
+    overflow = torch.sum(torch.sum(relevant, dim=1) > G)
+    score = torch.where(relevant, d_bb, float("inf"))
+    score, bsel = torch.sort(score, dim=1, stable=True)
+    slot_ok = torch.isfinite(score[:, :G])
+    bsel = torch.where(slot_ok, bsel[:, :G], 0)               # (nq, G)
+    tb = index.tb
+    cand = index.blocks[bsel].transpose(-1, -2)               # (nq,G,tb,3)
+    cok = index.valid[bsel] & slot_ok[..., None]
+    cidx = bsel[..., None] * tb + torch.arange(tb, device=query.device)
+    C = G * tb
+    cand = cand.reshape(nq, C, 3)
+    diff = qb[:, :, None, :] - cand[:, None, :, :]            # (nq,QB,C,3)
+    d = torch.sum(diff * diff, dim=-1)
+    d = torch.where(cok.reshape(nq, 1, C), d, float("inf"))
+    idxb = cidx.reshape(nq, 1, C).expand(nq, QB, C)
+    if query.dtype == torch.float64:
+        d, sel = torch.sort(d, dim=-1, stable=True)
+        vals, idx = d[..., :k], torch.gather(idxb, -1, sel[..., :k])
+    else:
+        vals, idx = _extract_k_smallest(d.reshape(nq * QB, C),
+                                        idxb.reshape(nq * QB, C), k)
+    vals = vals.reshape(nq * QB, k)[:n]
+    idx = torch.clamp(idx.reshape(nq * QB, k)[:n], 0, index.num_points - 1)
+    return vals, idx, overflow

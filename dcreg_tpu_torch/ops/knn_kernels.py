@@ -1,0 +1,316 @@
+"""Brute-force exact k-NN kernels K2 and K3 (counterpart of
+``dcreg_tpu/ops/pallas_knn.py``).
+
+K2 (``knn_candidates``) returns, for every query point, its ``kk`` best
+candidates over the whole target as exact (f32 squared distance, int32
+index) pairs, ordered by distance and then by index.  Distances are
+coordinate-wise, ``((pen + dx^2) + dy^2) + dz^2`` clamped at BIG, where
+``pen`` is 0 for a valid target and BIG for an invalid one; never the
+|q|^2 + |t|^2 - 2 q.t expansion.  ``knn`` re-ranks the candidates with
+exactly computed distances and keeps ``k``, as the JAX ``knn`` does.
+
+K3 (``group_min``) returns the per-query minimum of the same distance over
+every group of 128 consecutive targets, stored (groups, queries): phase A
+of ``knn_grouped``.  Phase B (top groups, gather, exact distances,
+``_extract_k_smallest``) is PyTorch.
+
+Where the TPU kernel packs the tile-local column into the low mantissa
+bits of each distance (a quantisation that depends on the tile width),
+the card compares 64-bit keys ``(float bits << 32) | index``: a
+non-negative float orders like its bits, so the keys order exactly like
+(distance, index), with the JAX merge's tie rule (lower index first).
+
+The wrappers are the kernel boundary: a tensor on the card launches the
+hand-written CUDA kernel (``csrc/knn.cu``, built on first use with nvcc
+and bound with ctypes) or raises; a tensor on the CPU takes the plain
+PyTorch twin, which computes the same keys with the same float operations
+in the same order.  The twins are public (``knn_candidates_plain``,
+``group_min_plain``) so that the kernels can be checked against them on
+the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import cuda_build
+
+BIG = 3.0e38
+GROUP = 128
+MAX_KK = 16
+INIT_LOW = 0xFFFFFFFF            # index bits of an empty K2 slot (-1)
+
+CSRC = cuda_build.CSRC / "knn.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
+
+
+def build_library() -> dict:
+    """Compile ``csrc/knn.cu`` with the shared nvcc command
+    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
+    Returns {"path", "seconds", "log"}."""
+    return cuda_build.build_library(CSRC, "dcreg_knn", "K2/K3", BUILD_DIR)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(build_library()["path"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dcreg_knn_candidates.argtypes = [p, i, p, p, i, i, p, p, p]
+    lib.dcreg_knn_candidates.restype = i
+    lib.dcreg_knn_group_min.argtypes = [p, i, p, p, i, p, p]
+    lib.dcreg_knn_group_min.restype = i
+    return lib
+
+
+def _check_inputs(query, target, pen):
+    n, m = query.shape[0], target.shape[0]
+    for name, t, shape in (("query", query, (n, 3)),
+                           ("target", target, (m, 3)), ("pen", pen, (m,))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != query.device:
+            raise ValueError(f"{name} is on {t.device}, query on "
+                             f"{query.device}")
+    if m >= 2 ** 31 - 1:
+        raise ValueError("K2/K3 index targets with int32")
+
+
+def _sq_dist(q, t, pen):
+    """(C, M) coordinate-wise squared distances in the kernels' order:
+    ((pen + dx^2) + dy^2) + dz^2, clamped at BIG."""
+    d = pen[None, :]
+    for c in range(3):
+        diff = q[:, c, None] - t[None, :, c]
+        d = d + diff * diff
+    return torch.clamp(d, max=BIG)
+
+
+def _query_chunk(n_targets: int, device) -> int:
+    budget = 1 << (26 if device.type == "cuda" else 22)
+    return max(1, budget // max(n_targets, 1))
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+def knn_candidates_plain(query, target, pen, kk: int):
+    """Plain PyTorch twin of K2: (val (N, kk) f32 ascending, idx (N, kk)
+    int32), the kk smallest (distance, index) keys of each query; slots
+    past the M-th candidate hold (BIG, -1)."""
+    n, m = query.shape[0], target.shape[0]
+    dev = query.device
+    big_bits = torch.tensor(BIG, dtype=torch.float32).view(torch.int32)
+    init = (int(big_bits) << 32) | INIT_LOW
+    cols = torch.arange(m, dtype=torch.int64, device=dev)
+    keys = []
+    step = _query_chunk(m, dev)
+    for c0 in range(0, n, step):
+        d = _sq_dist(query[c0:c0 + step], target, pen)
+        key = torch.bitwise_or(torch.bitwise_left_shift(
+            d.view(torch.int32).to(torch.int64), 32), cols)
+        keys.append(torch.topk(key, min(kk, m), dim=1, largest=False,
+                               sorted=True).values)
+    key = torch.cat(keys) if keys else torch.empty(
+        (0, min(kk, m)), dtype=torch.int64, device=dev)
+    if key.shape[1] < kk:
+        key = torch.cat([key, torch.full((n, kk - key.shape[1]), init,
+                                         dtype=torch.int64, device=dev)], 1)
+    val = torch.bitwise_right_shift(key, 32).to(torch.int32).view(
+        torch.float32)
+    low = torch.bitwise_and(key, INIT_LOW)
+    idx = torch.where(low == INIT_LOW, -1, low).to(torch.int32)
+    return val, idx
+
+
+def _launch_candidates(query, target, pen, kk):
+    n, m = query.shape[0], target.shape[0]
+    val = torch.empty((n, kk), dtype=torch.float32, device=query.device)
+    idx = torch.empty((n, kk), dtype=torch.int32, device=query.device)
+    fn = _library().dcreg_knn_candidates
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, kk,
+            val.data_ptr(), idx.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 knn kernel launch failed: cudaError {rc}")
+    knn_candidates.launches += 1
+    return val, idx
+
+
+def knn_candidates(query, target, pen, kk: int):
+    """K2's boundary: (val (N, kk) f32, idx (N, kk) int32) for f32
+    query (N, 3), target (M, 3) and pen (M,).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    if not 1 <= kk <= MAX_KK:
+        raise ValueError(f"K2 keeps 1..{MAX_KK} candidates, got kk={kk}")
+    _check_inputs(query, target, pen)
+    if query.device.type == "cpu":
+        return knn_candidates_plain(query, target, pen, kk)
+    return _launch_candidates(query, target, pen, kk)
+
+
+knn_candidates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def group_min_plain(query, target, pen):
+    """Plain PyTorch twin of K3: (ceil(M / 128), N) f32 group minima; the
+    last group's missing targets count as BIG."""
+    n, m = query.shape[0], target.shape[0]
+    ng = -(-m // GROUP)
+    dev = query.device
+    out = []
+    step = _query_chunk(ng * GROUP, dev)
+    for c0 in range(0, n, step):
+        d = _sq_dist(query[c0:c0 + step], target, pen)
+        d = torch.nn.functional.pad(d, (0, ng * GROUP - m), value=BIG)
+        out.append(torch.amin(d.reshape(d.shape[0], ng, GROUP), dim=2))
+    g = torch.cat(out) if out else torch.empty((0, ng), device=dev)
+    return g.T.contiguous()
+
+
+def _launch_group_min(query, target, pen):
+    n, m = query.shape[0], target.shape[0]
+    out = torch.empty((-(-m // GROUP), n), dtype=torch.float32,
+                      device=query.device)
+    fn = _library().dcreg_knn_group_min
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m,
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 group-min kernel launch failed: cudaError "
+                           f"{rc}")
+    group_min.launches += 1
+    return out
+
+
+def group_min(query, target, pen):
+    """K3's boundary: (ceil(M / 128), N) f32 group minima.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise)."""
+    _check_inputs(query, target, pen)
+    if target.shape[0] == 0:
+        raise ValueError("group_min needs at least one target")
+    if query.device.type == "cpu":
+        return group_min_plain(query, target, pen)
+    return _launch_group_min(query, target, pen)
+
+
+group_min.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The public searches
+# ---------------------------------------------------------------------------
+
+def _penalty(m, target_valid, device):
+    """(M,) f32: 0 at valid targets, BIG at invalid ones."""
+    if target_valid is None:
+        return torch.zeros(m, dtype=torch.float32, device=device)
+    return torch.where(target_valid.to(device=device, dtype=torch.bool),
+                       0.0, BIG).to(torch.float32).contiguous()
+
+
+def _exact_sq(cand, query):
+    """Exact squared distances of candidates (..., C, 3) to their queries
+    (..., 3), summed x, y, z in that order."""
+    diff = cand - query[..., None, :]
+    return (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+        + diff[..., 2] * diff[..., 2]
+
+
+def _smallest(d, idx, k: int):
+    """The k smallest (d, idx) pairs of each row, ascending, equal
+    distances ordered by index."""
+    by_idx = torch.argsort(idx, dim=-1, stable=True)
+    d = torch.gather(d, -1, by_idx)
+    idx = torch.gather(idx, -1, by_idx)
+    sel = torch.argsort(d, dim=-1, stable=True)[..., :k]
+    return torch.gather(d, -1, sel), torch.gather(idx, -1, sel)
+
+
+def knn(query, target, target_valid=None, k: int = 5, kk: int = 8):
+    """Exact k nearest neighbours through K2 (``pallas_knn.knn``).
+
+    query (N, 3), target (M, 3); returns (sq_dists (N, k) ascending in the
+    query's dtype, indices (N, k) int64).  kk >= k candidates per query
+    come from K2 and are re-ranked with exactly computed distances;
+    candidates at BIG or on invalid targets rank as inf."""
+    n, m = query.shape[0], target.shape[0]
+    kk = max(k, kk)
+    orig_dtype = query.dtype
+    q = query.to(torch.float32).contiguous()
+    t = target.to(torch.float32).contiguous()
+    val, idx = knn_candidates(q, t, _penalty(m, target_valid, q.device), kk)
+    idx = torch.clamp(idx.long(), 0, m - 1)
+    d = _exact_sq(t[idx], q)
+    d = torch.where(val >= BIG, float("inf"), d)
+    if target_valid is not None:
+        d = torch.where(target_valid.to(q.device)[idx], d, float("inf"))
+    d, i = _smallest(d, idx, k)
+    return d.to(orig_dtype), i
+
+
+def _extract_k_smallest(d, idx, k: int):
+    """k rounds of packed-key (min, mask) over a wide f32 candidate strip:
+    the column packed into the low mantissa bits makes every key unique.
+    d (..., C) >= 0 exact distances (inf allowed); idx (..., C).  Returns
+    (vals (..., k) exact, indices (..., k)), near-ties ordered at the
+    packing's quantisation."""
+    C = d.shape[-1]
+    mask_c = (1 << max(1, C - 1).bit_length()) - 1
+    col = torch.arange(C, dtype=torch.int32, device=d.device)
+    dn = torch.clamp(d, max=BIG) + 2.0 ** -30
+    key = torch.bitwise_or(torch.bitwise_and(dn.view(torch.int32), ~mask_c),
+                           col).view(torch.float32)
+    vals, idxs = [], []
+    for _ in range(k):
+        m = torch.amin(key, dim=-1, keepdim=True)
+        c = torch.bitwise_and(m.view(torch.int32), mask_c).long()
+        vals.append(torch.gather(d, -1, c)[..., 0])
+        idxs.append(torch.gather(idx, -1, c)[..., 0])
+        key = torch.where(key == m, BIG, key)
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def knn_grouped(query, target, target_valid=None, k: int = 5,
+                groups: int = 8):
+    """Exact k-NN through K3's group-min prefilter (``knn_grouped``).
+
+    Phase A: the minimum distance of each query over every 128-target
+    group (K3).  Phase B: the query's ``groups`` nearest groups (lower
+    group first on equal minima), exact distances to their points, k + 3
+    extracted and re-ranked.  Exact for k <= groups.  Returns
+    (sq_dists (N, k), indices (N, k) int64)."""
+    if groups < k:
+        raise ValueError("group margin must cover k")
+    n, m = query.shape[0], target.shape[0]
+    orig_dtype = query.dtype
+    q = query.to(torch.float32).contiguous()
+    t = target.to(torch.float32).contiguous()
+    dev = q.device
+    gmin = group_min(q, t, _penalty(m, target_valid, dev)).T
+    ng = gmin.shape[1]
+    g = min(groups, ng)
+    gidx = torch.sort(gmin, dim=1, stable=True).indices[:, :g]   # (N, g)
+    blocks = torch.nn.functional.pad(t, (0, 0, 0, ng * GROUP - m)).reshape(
+        ng, GROUP, 3)
+    cand_idx = (gidx[..., None] * GROUP
+                + torch.arange(GROUP, device=dev)).reshape(n, g * GROUP)
+    d = _exact_sq(blocks[gidx].reshape(n, g * GROUP, 3), q)
+    d = torch.where(cand_idx < m, d, float("inf"))
+    if target_valid is not None:
+        ok = target_valid.to(dev)[torch.clamp(cand_idx, max=m - 1)]
+        d = torch.where(ok, d, float("inf"))
+    d_kk, i_kk = _extract_k_smallest(d, cand_idx, k + 3)
+    d, i = _smallest(d_kk, i_kk, k)
+    return d.to(orig_dtype), i

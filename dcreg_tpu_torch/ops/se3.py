@@ -124,3 +124,55 @@ def pose_error(T_gt, T_est, degrees: bool = True):
     if degrees:
         ang = ang * (180.0 / math.pi)
     return trans_error, ang
+
+
+def pose6d_to_matrix(pose):
+    """pose (..., 6) as [roll, pitch, yaw, x, y, z] -> (..., 4, 4)."""
+    R = euler_zyx_to_rot(pose[..., 0], pose[..., 1], pose[..., 2])
+    return se3_matrix(R, pose[..., 3:6])
+
+
+def rot_to_quat(R):
+    """Rotation matrix -> quaternion (w, x, y, z), branchless Shepperd:
+    the best-conditioned of four constructions, normalised, w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1.0 + tr, min=0.0)) * 0.5
+    den = 4.0 * torch.clamp(qw, min=1e-15)
+    q0 = torch.stack([qw, (m21 - m12) / den, (m02 - m20) / den,
+                      (m10 - m01) / den], dim=-1)
+    sx = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=1e-30))
+    q1 = torch.stack([(m21 - m12) / (2.0 * sx), 0.5 * sx,
+                      (m01 + m10) / (2.0 * sx), (m02 + m20) / (2.0 * sx)],
+                     dim=-1)
+    sy = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=1e-30))
+    q2 = torch.stack([(m02 - m20) / (2.0 * sy), (m01 + m10) / (2.0 * sy),
+                      0.5 * sy, (m12 + m21) / (2.0 * sy)], dim=-1)
+    sz = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=1e-30))
+    q3 = torch.stack([(m10 - m01) / (2.0 * sz), (m02 + m20) / (2.0 * sz),
+                      (m12 + m21) / (2.0 * sz), 0.5 * sz], dim=-1)
+    choice = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, choice[..., None, None].expand(
+        choice.shape + (1, 4)))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def rot_to_euler_zyx(R):
+    """Rotation matrix -> (roll, pitch, yaw) through the quaternion."""
+    q = rot_to_quat(R)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    yaw = torch.arctan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    pitch = torch.arcsin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    roll = torch.arctan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    return roll, pitch, yaw
+
+
+def matrix_to_pose6d(T):
+    """(..., 4, 4) -> (..., 6) as [roll, pitch, yaw, x, y, z]."""
+    roll, pitch, yaw = rot_to_euler_zyx(T[..., :3, :3])
+    return torch.stack([roll, pitch, yaw,
+                        T[..., 0, 3], T[..., 1, 3], T[..., 2, 3]], dim=-1)

@@ -1,0 +1,117 @@
+"""CSR voxel-grid index for exact gated k-NN (counterpart of the
+``GridIndex`` half of ``dcreg_tpu/ops/voxel_grid.py``).
+
+Built once per target cloud on the host in numpy: points sorted by cell,
+CSR start offsets per cell, static grid dims and ``cap``, the exact
+maximum occupancy of any 27-cell neighbourhood.  A query walks its
+neighbourhood's buckets through the cumulative counts, so it evaluates
+at most ``cap`` candidates and never drops one.  With voxel_size >= the
+search radius the neighbourhood covers the whole search ball, so gated
+results equal brute force.  (``VoxelGrid``/``voxel_knn`` belong to the
+voxel odometry and are not ported yet.)
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..utils import resolve_device
+from .knn_kernels import _extract_k_smallest
+
+# offsets of the 27-neighbourhood, (27, 3), in the JAX module's order
+_NEIGHBORHOOD = np.stack(np.meshgrid(np.arange(-1, 2), np.arange(-1, 2),
+                                     np.arange(-1, 2), indexing="ij"),
+                         axis=-1).reshape(27, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridIndex:
+    points: torch.Tensor    # (M, 3) indexed points, original order
+    order: torch.Tensor     # (V,) int64 valid-point indices sorted by cell
+    start: torch.Tensor     # (ncells + 1,) int64 CSR offsets into order
+    origin: torch.Tensor    # (3,) grid min corner
+    dims: tuple             # (nx, ny, nz)
+    voxel_size: float
+    cap: int                # exact max 27-neighbourhood occupancy
+
+
+def build_grid_index(points, voxel_size: float, valid=None,
+                     dtype=torch.float32, device=None) -> GridIndex:
+    """Host-side CSR grid build over (M, 3) ``points`` with edge
+    ``voxel_size``; invalid points (``valid`` False) are left out.  The
+    index lives on ``device`` (cuda unless told otherwise)."""
+    dev = resolve_device(device)
+    pts = np.asarray(points, np.float64)
+    M = pts.shape[0]
+    vmask = (np.ones(M, bool) if valid is None
+             else np.asarray(valid, bool))
+    vp = pts[vmask]
+    if vp.shape[0] == 0:
+        raise ValueError("grid index needs at least one valid point")
+    origin = vp.min(axis=0) - 0.5 * voxel_size
+    coords = np.floor((vp - origin) * (1.0 / voxel_size)).astype(np.int64)
+    dims = tuple(int(d) for d in coords.max(axis=0) + 1)
+    ncells = dims[0] * dims[1] * dims[2]
+    if ncells > 200_000_000:
+        raise ValueError(f"grid too large ({ncells} cells); increase "
+                         f"voxel_size or crop the cloud")
+    flat = (coords[:, 0] * dims[1] + coords[:, 1]) * dims[2] + coords[:, 2]
+    perm = np.argsort(flat, kind="stable")
+    order = np.nonzero(vmask)[0][perm]
+    start = np.searchsorted(flat[perm], np.arange(ncells + 1))
+
+    # exact candidate bound: the largest 27-neighbourhood occupancy over
+    # every cell of the 1-dilated grid (any query position)
+    counts = np.bincount(flat, minlength=ncells).reshape(dims)
+    padded = np.pad(counts, 2)
+    S = np.zeros(tuple(d + 2 for d in dims), np.int64)
+    for dx in (0, 1, 2):
+        for dy in (0, 1, 2):
+            for dz in (0, 1, 2):
+                S += padded[dx:dx + dims[0] + 2, dy:dy + dims[1] + 2,
+                            dz:dz + dims[2] + 2]
+    cap = max(8, -(-int(S.max()) // 8) * 8)
+    return GridIndex(points=torch.as_tensor(pts, dtype=dtype, device=dev),
+                     order=torch.as_tensor(order, device=dev),
+                     start=torch.as_tensor(start, device=dev),
+                     origin=torch.as_tensor(origin, dtype=dtype, device=dev),
+                     dims=dims, voxel_size=float(voxel_size), cap=cap)
+
+
+def grid_knn(grid: GridIndex, query, k: int = 5):
+    """Exact k-NN of each query among the grid points of its 27-cell
+    neighbourhood.  Returns (sq_dists (N, k) ascending, indices (N, k)
+    int64 into ``grid.points``); a missing neighbour carries +inf.  f64
+    selects exactly (equal distances: lower candidate slot first); f32
+    takes the packed-key extraction, as the JAX module does."""
+    dev = query.device
+    nx, ny, nz = grid.dims
+    dims = torch.tensor(grid.dims, device=dev)
+    qc = torch.floor((query - grid.origin)
+                     * (1.0 / grid.voxel_size)).long()
+    nb = qc[:, None, :] + torch.as_tensor(_NEIGHBORHOOD, device=dev)
+    in_grid = torch.all((nb >= 0) & (nb < dims), dim=-1)       # (N, 27)
+    nbc = torch.minimum(torch.clamp(nb, min=0), dims - 1)
+    flat = (nbc[..., 0] * ny + nbc[..., 1]) * nz + nbc[..., 2]
+    s = grid.start[flat]
+    cnt = torch.where(in_grid, grid.start[flat + 1] - s, 0)
+    cum = torch.cumsum(cnt, dim=1)
+    total = cum[:, -1]
+    # slot c belongs to bucket b(c) = #{j : cum[j] <= c}
+    c = torch.arange(grid.cap, device=dev)
+    b = torch.sum(cum[:, :, None] <= c[None, None, :], dim=1)  # (N, cap)
+    prev = torch.where(b > 0, torch.gather(cum, 1, torch.clamp(b - 1,
+                                                               min=0)), 0)
+    pos = torch.gather(s, 1, torch.clamp(b, max=26)) + (c[None, :] - prev)
+    valid_slot = c[None, :] < total[:, None]
+    pos = torch.clamp(pos, 0, max(grid.order.shape[0] - 1, 0))
+    cand = grid.order[pos]                                     # (N, cap)
+    diff = grid.points[cand] - query[:, None, :]
+    d = torch.sum(diff * diff, dim=-1)
+    d = torch.where(valid_slot, d, float("inf"))
+    if query.dtype == torch.float64:
+        d, sel = torch.sort(d, dim=-1, stable=True)
+        return d[:, :k], torch.gather(cand, 1, sel[:, :k])
+    return _extract_k_smallest(d, cand, k)

@@ -108,8 +108,8 @@ def test_k1_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
     with no kernel library to be had, the wrapper raises.  ("meta"
     tensors stand in for CUDA tensors on a machine without a card.)"""
     monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(tk.shutil, "which", lambda name: None)
-    monkeypatch.setattr(tk.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(tk.cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tk.cuda_build.os.path, "exists", lambda p: False)
     tk._library.cache_clear()
     before = tk.block_knn_keys.launches
     args = _device_inputs("meta")
@@ -132,3 +132,86 @@ def test_k1_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
     keys = tk.block_knn_keys(*_device_inputs("cpu"), None, 11, 1.0, 1.1)
     assert keys.shape == (2, 3, 8, 128)
     assert tk.block_knn_keys.launches == before
+
+
+def test_pair_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """The pair-mode entry points, the harness and the CLI need a card
+    unless told device='cpu'."""
+    from dcreg_tpu_torch import cli
+    from dcreg_tpu_torch.config import load_config
+    from dcreg_tpu_torch.harness import TestRunner
+    from dcreg_tpu_torch.io.pcd import save_pcd
+    from dcreg_tpu_torch.models.icp import icp_point_to_plane_so3
+    from dcreg_tpu_torch.ops import voxel_grid as tvg
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(1).uniform(-1, 1, (300, 3))
+    det = tdeg.DetectionMethod.SCHUR_CONDITION_NUMBER
+    hand = tdeg.HandlingMethod.PRECONDITIONED_CG
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tvg.build_grid_index(pts, 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        icp_point_to_plane_so3(pts, pts, np.eye(3), np.zeros(3), det, hand)
+    cfg = load_config(str(ROOT / "configs" / "cylinder.yaml"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TestRunner(cfg)
+    src = tmp_path / "c.pcd"
+    save_pcd(str(src), pts)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        cli.main(["--config", str(ROOT / "configs" / "cylinder.yaml"),
+                  "--source", str(src)])
+    # explicit CPU runs
+    g = tvg.build_grid_index(pts, 1.0, device="cpu")
+    assert g.points.device.type == "cpu"
+    out = icp_point_to_plane_so3(pts, pts, np.eye(3), np.zeros(3), det,
+                                 hand, ICPParams(max_iterations=2),
+                                 device="cpu")
+    assert out.R.device.type == "cpu"
+    assert TestRunner(cfg, device="cpu").device.type == "cpu"
+
+
+def test_k2_k3_wrappers_raise_instead_of_falling_back(monkeypatch,
+                                                      tmp_path):
+    """A non-CPU tensor never reaches the K2 or K3 plain twin: with no
+    kernel library to be had, knn and knn_grouped raise and no launch is
+    counted ("meta" tensors stand in for CUDA tensors)."""
+    from dcreg_tpu_torch.ops import knn as tknn
+    from dcreg_tpu_torch.ops import knn_kernels as tkk
+    monkeypatch.setattr(tkk, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tkk.cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tkk.cuda_build.os.path, "exists", lambda p: False)
+    tkk._library.cache_clear()
+    k2, k3 = tkk.knn_candidates.launches, tkk.group_min.launches
+    q = torch.zeros((20, 3), device="meta")
+    t = torch.zeros((300, 3), device="meta")
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tkk.knn(q, t, k=5)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tkk.knn_grouped(q, t, k=5)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tknn.nn1(q, t)
+        # f64 on a device other than the CPU raises before any search
+        with pytest.raises(ValueError, match="CPU only"):
+            tknn.knn(q.double(), t.double(), k=5)
+    finally:
+        tkk._library.cache_clear()
+    assert (tkk.knn_candidates.launches, tkk.group_min.launches) == (k2, k3)
+    # the same calls on CPU tensors take the plain twins, count nothing
+    d, i = tkk.knn(torch.zeros((20, 3)), torch.rand((300, 3)), k=5)
+    assert d.shape == (20, 5)
+    tkk.knn_grouped(torch.zeros((20, 3)), torch.rand((300, 3)), k=5)
+    assert (tkk.knn_candidates.launches, tkk.group_min.launches) == (k2, k3)
+
+
+def test_test_runner_dtype_follows_device(monkeypatch):
+    """With no dtype given, the harness runs f64 on the CPU and f32 on
+    the card, whose k-NN runs no f64; an explicit dtype stands."""
+    from dcreg_tpu_torch.config import load_config
+    from dcreg_tpu_torch.harness import TestRunner
+    cfg = load_config(str(ROOT / "configs" / "cylinder.yaml"))
+    assert TestRunner(cfg, device="cpu").dtype == torch.float64
+    assert TestRunner(cfg, dtype=torch.float32,
+                      device="cpu").dtype == torch.float32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    runner = TestRunner(cfg)
+    assert (runner.device.type, runner.dtype) == ("cuda", torch.float32)
