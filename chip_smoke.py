@@ -6,9 +6,12 @@ Builds every kernel from csrc/ (one nvcc per source, in parallel,
 sm_90a), then runs on the card:
 
   1. K1 against its plain PyTorch twin, keys bit for bit, at the main
-     path's three shapes: (a) map mode, B=1, slot-local ids, no mask;
+     path's shapes: (a) map mode, B=1, slot-local ids, no mask;
      (b) map mode, B=128, slot-local ids, lane mask; (c) BlockIndex mode,
-     B=128, global ids, lane mask;
+     B=128, global ids, lane mask; (a_live) the localization loop's own
+     call: the reused pair list with its live mask; (e) B=33, two mask
+     words; (f) B=1 with one query block's run max_per_query long; each
+     row prints the split and CTA count the wrapper launched;
   2. the localization loop ``run_odometry_map``: 128 frames of 5,000
      points against a synthetic prior map (53M points by default,
      DCREG_SMOKE_MAP_POINTS overrides), gated on every frame converging,
@@ -67,6 +70,8 @@ PAIR_POINTS = 8192
 # operations/s outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_F32_PER_S = 67e12
+# clock cycles of the spin kernel in time_ms (about 50 ms on an H100)
+SPIN_CYCLES = 100_000_000
 
 
 def emit(obj):
@@ -74,11 +79,15 @@ def emit(obj):
 
 
 def time_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events).  A
+    spin kernel ahead of the first event holds the card while the host
+    enqueues the calls, so a call shorter than its host-side launch path
+    is timed by the card, not by the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -96,18 +105,28 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
+# names of the port's hand-written CUDA kernels (csrc/)
+PORT_KERNELS = ("block_knn_keys_kernel", "block_knn_merge_kernel",
+                "knn_candidates_kernel", "group_min_kernel")
+
+
 def profile_window(name, fn, top=8):
     """Where the time of one call of ``fn`` goes: wall time, device-busy
-    share (sum of kernel times over wall time), the kernels with the most
-    device time and the host-side ops with the most self time.  Only
+    share (sum of kernel times over wall time), the port's own kernels,
+    the kernels with the most device time and the host-side ops with the
+    most self time, and the CUDA kernels K1's wrapper ran per call, counted
+    by the profiler.  Only
     events that ran on the card count as device time: a host op's own
     device total repeats its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from dcreg_tpu_torch.ops import block_knn as tk
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    k1_before = tk.block_knn_keys.launches
     with profile(activities=acts) as prof:
         _, seconds = wall(fn)
+    k1_calls = tk.block_knn_keys.launches - k1_before
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -118,9 +137,15 @@ def profile_window(name, fn, top=8):
     by_cpu = sorted(on_host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:top]
     row = lambda e, t: {"name": e.key[:60], "count": e.count, "ms": t / 1e3}
+    ours = [e for e in on_card if any(k in e.key for k in PORT_KERNELS)]
+    k1_kernels = sum(e.count for e in ours if "block_knn_" in e.key)
     return {"phase": name, "wall_s": seconds, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e6 / seconds,
             "kernel_launches": sum(e.count for e in on_card),
+            "port_kernels": [row(e, dev_us(e)) for e in ours],
+            "k1_calls": k1_calls,
+            "k1_cuda_kernels_per_call": (k1_kernels / k1_calls
+                                         if k1_calls else None),
             "top_device": [row(e, dev_us(e)) for e in by_dev],
             "top_host_self": [row(e, e.self_cpu_time_total) for e in by_cpu]}
 
@@ -196,9 +221,15 @@ def euler(r, p, y):
 # K1 inputs at the main path's shapes, and its bound
 # --------------------------------------------------------------------------
 
-def k1_inputs(kind, src_xyz, index, Rs, ts, radius, caps, device):
+def k1_inputs(kind, src_xyz, index, Rs, ts, radius, caps, device,
+              live_radius=None, key_radius=None):
     """The (src_blocks, poses, qid, tid, pid, lane_mask, ib, scale, clamp)
-    that iteration 0 of ``icp_batch_so3`` hands to K1."""
+    that iteration 0 of ``icp_batch_so3`` hands to K1.  ``kind`` "block"
+    or "map" culls at ``radius``; "map_reuse" is the localization loop's
+    call: the pair list culled at ``radius`` (the reuse radius) with the
+    live mask of the pairs within ``live_radius`` at these poses, as
+    ``icp_batch_so3`` builds it.  Keys use ``key_radius`` (default
+    ``radius``)."""
     from dcreg_tpu_torch.ops import block_knn as tk
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
     src = f32(src_xyz)
@@ -231,9 +262,19 @@ def k1_inputs(kind, src_xyz, index, Rs, ts, radius, caps, device):
         pid = slot
         mask = tk.pack_lane_mask(rel_l, qid, col) if B > 1 else None
         ib = tk._index_bits(caps["G"] * tk.TB)
+        if kind == "map_reuse":
+            pad = qid >= nq
+            t_safe = torch.where(pad, 0, tid).long()
+            q_safe = torch.where(pad, 0, qid).long()
+            qlo, qhi = qbox[0][0][q_safe], qbox[1][0][q_safe]
+            gap = torch.clamp(torch.maximum(qlo - bi.hi[t_safe],
+                                            bi.lo[t_safe] - qhi), min=0.0)
+            live = ((gap * gap).sum(-1) <= live_radius ** 2) & ~pad
+            mask = live.to(torch.int32)[:, None]
     if int(ovf) != 0:
         raise RuntimeError(f"K1 inputs ({kind}) overflow the pair list")
-    _, _, clamp, scale = tk.key_params(radius, ib)
+    _, _, clamp, scale = tk.key_params(
+        radius if key_radius is None else key_radius, ib)
     poses = torch.cat([Rs.reshape(B, 9), ts], dim=1).contiguous()
     i32 = lambda t: t.to(torch.int32).contiguous()
     return dict(src_blocks=src_q.transpose(1, 2).contiguous(),
@@ -275,13 +316,41 @@ def k1_bound(a):
                 live_lanes.sum())}
 
 
+def long_run_inputs(a, G):
+    """(f): ``a``'s shape (slot-local ids, B = 1, no mask) with query block
+    0 given a run of ``G`` (max_per_query) pairs, the distinct target
+    blocks of ``a``'s list, and every other block its first 2 pairs."""
+    from dcreg_tpu_torch.ops import block_knn as tk
+    nq = a["src_blocks"].shape[0]
+    qid, tid = a["qid"].long(), a["tid"].long()
+    real = qid < nq
+    tids = torch.unique(tid[real])
+    if tids.numel() < G:
+        raise RuntimeError(f"(f) needs {G} distinct target blocks, "
+                           f"(a) has {tids.numel()}")
+    run_start = tk._run_start(a["qid"], nq).long()
+    rank = torch.arange(qid.numel(), device=qid.device) - run_start[
+        torch.clamp(qid, max=nq - 1)]
+    keep = real & (qid > 0) & (rank < 2)
+    q = torch.cat([torch.zeros(G, dtype=torch.long, device=qid.device),
+                   qid[keep]])
+    t = torch.cat([tids[:G], tid[keep]])
+    slot = torch.cat([torch.arange(G, device=qid.device), rank[keep]])
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return dict(a, qid=i32(q), tid=i32(t), pid=i32(slot), lane_mask=None)
+
+
 def check_k1(name, a):
-    """Keys of K1 and its plain twin on the card, bit for bit; times."""
+    """Keys of K1 and its plain twin on the card, bit for bit; times.  The
+    split and CTA counts are those the wrapper launched."""
     from dcreg_tpu_torch.ops import block_knn as tk
     args = [a[k] for k in ("src_blocks", "tgt", "poses", "qid", "tid",
                            "pid", "lane_mask", "index_bits", "scale",
                            "clamp")]
+    nq, B = a["src_blocks"].shape[0], a["poses"].shape[0]
+    tk.block_knn_keys.last_grid = None
     keys = tk.block_knn_keys(*args)
+    grid = tk.block_knn_keys.last_grid or {"nsplit": None, "ctas": None}
     ref = tk.block_knn_keys(*args, plain=True)
     mismatches = int((keys != ref).sum())
     max_abs_err = int((keys.long() - ref.long()).abs().max())
@@ -290,10 +359,14 @@ def check_k1(name, a):
                            f"plain version (max |diff| {max_abs_err})")
     ms = time_ms(lambda: tk.block_knn_keys(*args), 20)
     plain_ms = time_ms(lambda: tk.block_knn_keys(*args, plain=True), 2)
-    row = {"phase": "k1_check", "shape": name,
-           "B": int(a["poses"].shape[0]), "nq": int(a["src_blocks"].shape[0]),
+    qid = a["qid"].long()
+    runs = torch.bincount(qid[qid < nq], minlength=nq)
+    row = {"phase": "k1_check", "shape": name, "B": int(B), "nq": int(nq),
            "keys": int(keys.numel()), "mismatches": mismatches,
-           "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+           "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           **grid,
+           "run_mean": float(runs.float().mean()),
+           "run_max": int(runs.max())}
     row.update(k1_bound(a))
     emit(row)
     return row
@@ -657,12 +730,12 @@ def run(seed: int, device: str = "cuda"):
     # ---- 1. K1 against its plain twin at the main path's shapes ---------
     # frame 0's constant-velocity seed, as the loop computes it
     T_pred = T_pre1 @ np.linalg.inv(T_pre2) @ T_pre1
+    a_inputs = k1_inputs("map", frames_s[0], mindex, T_pred[None, :3, :3],
+                         T_pred[None, :3, 3], R_CULL0 + REUSE_MARGIN,
+                         {"S": S, "G": G, "P": P}, device)
     rows = {
         "a_map_B1_slotted_nomask": check_k1("a_map_B1_slotted_nomask",
-                                            k1_inputs(
-            "map", frames_s[0], mindex, T_pred[None, :3, :3],
-            T_pred[None, :3, 3], R_CULL0 + REUSE_MARGIN,
-            {"S": S, "G": G, "P": P}, device)),
+                                            a_inputs),
         "b_map_B128_slotted_mask": check_k1("b_map_B128_slotted_mask",
                                             k1_inputs(
             "map", frames_s[0], mindex, R0s, t0s, MC_CULL0,
@@ -670,7 +743,21 @@ def run(seed: int, device: str = "cuda"):
         "c_block_B128_global_mask": check_k1("c_block_B128_global_mask",
                                              k1_inputs(
             "block", blk, bindex, R0b, t0b, 1.0, {"P": Pb}, device)),
+        # the loop's own call: the reused list and the live mask at the
+        # seed pose, keys at the search radius
+        "a_live_map_B1_reuse_mask": check_k1("a_live_map_B1_reuse_mask",
+                                             k1_inputs(
+            "map_reuse", frames_s[0], mindex, T_pred[None, :3, :3],
+            T_pred[None, :3, 3], R_CULL0 + REUSE_MARGIN,
+            {"S": S, "G": G, "P": P}, device, live_radius=R_CULL0,
+            key_radius=ICPParams().corr.search_radius)),
+        "e_map_B33_slotted_mask": check_k1("e_map_B33_slotted_mask",
+                                           k1_inputs(
+            "map", frames_s[0], mindex, R0s[:33], t0s[:33], MC_CULL0,
+            {"S": S2, "G": G2, "P": P2}, device)),
     }
+    rows["f_map_B1_long_run"] = check_k1("f_map_B1_long_run",
+                                         long_run_inputs(a_inputs, G))
 
     params = ICPParams()
     launches = {}
@@ -777,7 +864,8 @@ def run(seed: int, device: str = "cuda"):
         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
         "library_ms": None,
         "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "pairs", "B")}
+                                          "bound_by", "pairs", "B", "nsplit",
+                                          "ctas", "run_max")}
                    for k, v in rows.items()}}
 
 

@@ -14,8 +14,11 @@ only.
 the hand-written CUDA kernel K1 (``csrc/block_knn.cu``, built on first use
 with nvcc and bound with ctypes); a tensor on the CPU goes to the plain
 PyTorch twin ``block_knn_keys_plain``, which computes the same keys with
-the same operation order.  The cull and pair-list helpers are the JAX
-module's jnp code as torch ops.
+the same operation order.  K1 splits each query block's run of pairs
+across CTAs and merges the per-split lists exactly; ``_split_bounds``
+and ``merge_partial_keys`` are that split and merge in plain torch, for
+the tests.  The cull and pair-list helpers are the JAX module's jnp code
+as torch ops.
 """
 from __future__ import annotations
 
@@ -71,10 +74,60 @@ def _library():
     fn = lib.dcreg_block_knn_keys
     p = ctypes.c_void_p
     i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i,
+    fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i,
                    ctypes.c_float, ctypes.c_float, p]
     fn.restype = i
     return lib
+
+
+# K1's grid: (nq, nsplit, B) CTAs of 128 threads, one pose lane each.
+# Runs are split until the grid holds about CTAS_PER_SM CTAs for each of
+# the card's SMs, at most MAX_SPLIT pieces per run.
+CTAS_PER_SM = 32
+MAX_SPLIT = 16
+
+
+def _choose_nsplit(nq: int, B: int, sms: int) -> int:
+    """Pieces each query block's run of pairs is split into, from the
+    static shapes and the card's SM count only (no host sync)."""
+    ctas = nq * B
+    if ctas <= 0:
+        return 1
+    return max(1, min(MAX_SPLIT, -(-sms * CTAS_PER_SM // ctas)))
+
+
+def _run_start(qid, nq: int):
+    """(nq + 1,) int32: query block q's pairs are [run_start[q],
+    run_start[q + 1]).  Pairs are sorted by qid; padding pairs (qid ==
+    nq) sort last and fall outside every run."""
+    return torch.searchsorted(
+        qid, torch.arange(nq + 1, dtype=torch.int32, device=qid.device),
+        out_int32=True)
+
+
+def _split_bounds(run_start, nsplit: int):
+    """(lo, hi), each (nq, nsplit): split s of query block q takes pairs
+    [lo[q, s], hi[q, s]), the kernel's integer arithmetic
+    run_start[q] + s * len // nsplit.  The splits of a run partition it;
+    a split may be empty."""
+    r0 = run_start[:-1, None].long()
+    n = (run_start[1:] - run_start[:-1])[:, None].long()
+    s = torch.arange(nsplit + 1, device=run_start.device)
+    cut = r0 + s * n // nsplit
+    return cut[:, :-1], cut[:, 1:]
+
+
+def merge_partial_keys(partials):
+    """Plain twin of K1's merge: (nq, S, B, R >= K, QB) int32 ascending
+    per-split lists -> (nq, B, KP, QB), the K smallest keys of each point
+    over all splits, rows K.. INIT_KEY."""
+    nq, S, B, _, n = partials.shape
+    cand = partials[:, :, :, :K].permute(0, 2, 1, 3, 4).reshape(
+        nq, B, S * K, n)
+    top = torch.topk(cand, K, dim=2, largest=False, sorted=True).values
+    pad = torch.full((nq, B, KP - K, n), INIT_KEY, dtype=top.dtype,
+                     device=top.device)
+    return torch.cat([top, pad], dim=2)
 
 
 def _check(t, name, dtype, shape=None):
@@ -107,22 +160,24 @@ def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
             raise ValueError("lane_mask is not on the source's device")
         lane_mask = lane_mask.reshape(-1)
         _check(lane_mask, "lane_mask", torch.int32, (P * n_words,))
-    # each query block's run of pairs: pairs are sorted by qid, padding
-    # pairs (qid == nq) sort last and fall outside every run
-    run_start = torch.searchsorted(
-        qid, torch.arange(nq + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    out = torch.empty((nq, B, KP, QB), dtype=torch.int32, device=dev)
     fn = _library().dcreg_block_knn_keys
+    nsplit = _choose_nsplit(
+        nq, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    run_start = _run_start(qid, nq)
+    out = torch.empty((nq, B, KP, QB), dtype=torch.int32, device=dev)
+    partial = None if nsplit == 1 else torch.empty(
+        (nq, nsplit, B, K, QB), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(run_start.data_ptr(), tid.data_ptr(), pid.data_ptr(),
             0 if lane_mask is None else lane_mask.data_ptr(), n_words,
             src_blocks.data_ptr(), tgt.data_ptr(), poses.data_ptr(),
-            out.data_ptr(), nq, B, index_bits, scale, clamp, stream)
+            out.data_ptr(), 0 if partial is None else partial.data_ptr(),
+            nq, B, nsplit, index_bits, scale, clamp, stream)
     if rc != 0:
         raise RuntimeError(f"K1 block_knn kernel launch failed: "
                            f"cudaError {rc}")
     block_knn_keys.launches += 1
+    block_knn_keys.last_grid = {"nsplit": nsplit, "ctas": nq * nsplit * B}
     return out
 
 
@@ -205,6 +260,7 @@ def block_knn_keys(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
 
 
 block_knn_keys.launches = 0
+block_knn_keys.last_grid = None
 
 
 def key_params(radius: float, index_bits: int):
