@@ -24,7 +24,9 @@ sm_90a), then runs on the card:
   5. K2 and K3 against their plain twins, bit for bit, at (d) the 5-NN
      self query of the 8,192-point cylinder, (e) its nn1, (f) 65,536
      points with 30% of the targets invalid, where ``knn_grouped`` must
-     also return what ``knn`` returns;
+     also return what ``knn`` returns, and (g) 333 queries against 1,000
+     targets, 30% invalid; each row prints the grids the wrappers
+     launched;
   6. the pair harness: the five SO(3) rows of configs/cylinder.yaml
      through the port's TestRunner (f32) on the 8,192-point synthetic
      cylinder (source == target), once with the CSR grid search and once
@@ -415,11 +417,13 @@ def knn_bound(n, m, out_bytes):
 
 def check_knn(name, query, target, valid, k, kk):
     """K2 and K3 against their plain twins on the card, bit for bit on
-    (val, idx) and on the group minima; times of both kernels, their
-    twins, and for K2 the nearest library pair (cdist + topk)."""
+    (val, idx) and on the group minima; the grids the wrappers launched;
+    times of both kernels, their twins, and for K2 the nearest library
+    pair (cdist + topk)."""
     from dcreg_tpu_torch.ops import knn_kernels as kn
     n, m = query.shape[0], target.shape[0]
     pen = kn._penalty(m, valid, query.device)
+    kn.knn_candidates.last_grid = kn.group_min.last_grid = None
     val, idx = kn.knn_candidates(query, target, pen, kk)
     val_p, idx_p = kn.knn_candidates_plain(query, target, pen, kk)
     gmin = kn.group_min(query, target, pen)
@@ -446,12 +450,13 @@ def check_knn(name, query, target, valid, k, kk):
           "plain_ms": time_ms(lambda: kn.knn_candidates_plain(
               query, target, pen, kk), 2),
           "library_ms": time_ms(lib, 1), "max_abs_err": k2_err,
-          "mismatches": k2_bad}
+          "mismatches": k2_bad, "grid": kn.knn_candidates.last_grid}
     k2.update(knn_bound(n, m, n * kk * 8))
     k3 = {"ms": time_ms(lambda: kn.group_min(query, target, pen), 20),
           "plain_ms": time_ms(lambda: kn.group_min_plain(query, target,
                                                           pen), 2),
-          "library_ms": None, "max_abs_err": k3_err, "mismatches": k3_bad}
+          "library_ms": None, "max_abs_err": k3_err, "mismatches": k3_bad,
+          "grid": kn.group_min.last_grid}
     k3.update(knn_bound(n, m, gmin.numel() * 4))
     emit({"phase": "knn_check", "shape": name, "N": n, "M": m, "k": k,
           "kk": kk, "invalid_targets": 0 if valid is None
@@ -463,7 +468,10 @@ def knn_checks(seed, T0, device):
     """K2 and K3 at the shapes of the pair path: (d) the 5-NN self query
     of the 8,192-point cylinder, (e) nn1 of the cylinder moved by the
     initial pose T0 against itself, (f) 65,536 points with 30% of the targets
-    invalid, where knn_grouped must also return what knn returns."""
+    invalid, where knn_grouped must also return what knn returns, and
+    (g) ragged sizes, 333 queries and 1,000 targets with 30% invalid, which
+    hold K2's merge and partial slices and K3's partial chunk and group
+    on the card."""
     from dcreg_tpu_torch.ops import knn_kernels as kn
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
     cyl = f32(synthetic_cylinder(seed))
@@ -472,10 +480,16 @@ def knn_checks(seed, T0, device):
     rng = np.random.default_rng(seed + 2)
     big_q = f32(big + rng.normal(0.0, 0.05, big.shape))
     valid = torch.as_tensor(rng.uniform(size=65536) >= 0.3, device=device)
+    small = synthetic_cylinder(seed + 3, 1000)
+    small_q = f32(small[:333] + rng.normal(0.0, 0.05, (333, 3)))
+    small_valid = torch.as_tensor(rng.uniform(size=1000) >= 0.3,
+                                  device=device)
     rows = {"d_self_5nn": check_knn("d_self_5nn", cyl, cyl, None, 5, 10),
             "e_nn1": check_knn("e_nn1", moved, cyl, None, 1, 8),
             "f_65k_invalid": check_knn("f_65k_invalid", big_q, f32(big),
-                                       valid, 5, 10)}
+                                       valid, 5, 10),
+            "g_ragged_invalid": check_knn("g_ragged_invalid", small_q,
+                                          f32(small), small_valid, 5, 10)}
     kn.group_min.launches = 0
     dg, ig = kn.knn_grouped(big_q, f32(big), valid, k=5)
     k3_launches = kn.group_min.launches
@@ -646,7 +660,8 @@ def run_pair(seed: int, device: str = "cuda"):
           "library_ms": d[0]["library_ms"],
           "library": "torch.cdist + torch.topk (two calls)",
           "shapes": {k: {f: v[0][f] for f in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")}
+                                               "bound_by", "library_ms",
+                                               "grid")}
                      for k, v in rows.items()}}
     f = rows["f_65k_invalid"][1]
     k3 = {"name": "K3 group_min", "route": "cuda",
@@ -658,7 +673,7 @@ def run_pair(seed: int, device: str = "cuda"):
           "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
           "bound_by": f["bound_by"], "library_ms": None,
           "shapes": {k: {g: v[1][g] for g in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by")}
+                                               "bound_by", "grid")}
                      for k, v in rows.items()}}
     return k2, k3
 

@@ -14,160 +14,298 @@
 // and every group of 128 consecutive targets, min over the group of the
 // same d (phase A of the two-phase exact k-NN), stored (groups, queries).
 //
-// Design on Hopper.  The TPU walks (query tile, target tile) grid steps in
-// order and carries a (TQ, kk) best list in VMEM; it packs the tile-local
-// column into the low mantissa bits of each f32 distance so one min finds
-// value and column at once, at the price of a quantisation that depends on
-// the tile width and a 2^-30 bias.  Here one thread owns one query point
-// and keeps its kk best candidates in registers as 64-bit keys
-//   (float bits of d) << 32 | j
-// which order exactly like (d, j), because a non-negative float orders
-// like its bits: no quantisation, no bias, the JAX merge's tie rule (lower
-// index first on equal distance) by construction, int32 indices.  kk is a
-// template parameter and the insertion is fully unrolled, so the list
-// never leaves registers.  The targets stream through shared memory in
-// tiles of 2,048 points (x, y, z and the penalty: 32 KB); every thread of
-// the 128-thread CTA reads the same target at a time (a broadcast).
+// The TPU walks (query tile, target tile) grid steps in order and carries
+// a (TQ, kk) best list in VMEM; it packs the tile-local column into the
+// low mantissa bits of each f32 distance, a quantisation that depends on
+// the tile width.  Here a candidate is ordered by the exact pair (f32 bits
+// of d, j): a non-negative float orders like its bits, so there is no
+// quantisation and the JAX merge's tie rule (lower index first) holds.
+//
+// What bounds them on Hopper: f32 ALU work on the CUDA cores, 10
+// operations per (query, target) pair (3 sub, 3 mul, 3 add, 1 min or
+// compare); the bytes moved are small (queries once, targets once per CTA
+// from L2).  Built with --fmad=false, so the 9 float operations of a
+// distance are 9 instructions and about twice the f32 peak's time is
+// their floor.  The first version ran one thread per query over all M
+// targets: N = 8,192 queries gave 64 CTAs of 4 warps for 132 SMs, and each
+// thread's chain had nothing to hide its latency.  This design:
+//
+// K2.  A warp owns QPW = 4 queries, and its 32 lanes take 32 targets at a
+//    time from a shared-memory tile of 1,024 (x, y, z, pen) float4s: one
+//    LDS.128 per lane serves four pairs, and four independent distance
+//    chains hide each other's latency.  Each query's list lives across the
+//    warp, lane r holding entry r: 32 entries, of which the first kk are
+//    the answer.  A lane's candidate is tested against entry kk - 1 as it
+//    stood when the batch began, one vote per 32 x 4 pairs tells the warp
+//    whether any passes, and those that do go in one at a time, lowest
+//    index first, by ballot and shuffle, with no second test: a candidate
+//    that an earlier one of its batch pushed out of the first kk lands
+//    behind them, where it does no harm.  Every lane works on every
+//    insertion, none waits for another lane's.  (With a query and a list
+//    per lane, a warp walks every insertion that any of its 32 queries
+//    needs, and at N = 8,192 that, not the arithmetic, sets the time.)
+//    - CTAs of 8 warps share each tile among 32 / S queries.  S, the
+//      split, is 1 unless N is too small to give the card 8 warps per SM
+//      (the wrapper chooses it from N and the SM count): then the S warps
+//      of a query group each scan [s*1024/S, (s+1)*1024/S) of every tile,
+//      and at the end warp 0 of the group merges the S lists by the full
+//      (d, j) order.  (d, j) is unique per query, so the merge is exact
+//      whatever the order of the slices.
+//    - Within a warp's scan the indices grow, so a new candidate goes
+//      after an equal distance, and an empty slot holds the float just
+//      above BIG, so that a BIG candidate (an invalid target) still enters
+//      it.  The test of a lane's candidate is !(d >= bound) on the
+//      unclamped distance, with bound = the last entry or NaN while the
+//      list has an empty slot: exact, and one instruction per pair.
+// K3.  The grid is (query blocks of 128, S chunks of whole 128-target
+//    groups), S chosen by the wrapper from N, M and the SM count (1,024
+//    CTAs at N = M = 8,192).  CTA (b, s) writes only its own groups' rows,
+//    so no merge is needed.  The same float4 tile, with the padding past M
+//    at an infinite penalty, and four independent fminf chains per group:
+//    fminf is exact, so the order of the minima does not change a bit.
 //
 // Bit-exact with the plain PyTorch twins: the float operations are pinned
 // with __fsub_rn / __fmul_rn / __fadd_rn in the JAX order, and the library
 // is built with --fmad=false.
-//
-// What bounds them: f32 ALU work on the CUDA cores, 10 operations per
-// (query, target) pair (3 sub, 3 mul, 3 add, 1 min), plus K2's compare and
-// insert; the bytes moved are small (queries once, each target once per
-// CTA from L2).  This first version is simple: one thread per query, so
-// N = 8,192 queries give 64 CTAs for 132 SMs; splitting M across CTAs with
-// a merge pass is later work.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 128;     // queries per CTA
-constexpr int TT = 2048;         // targets per shared-memory tile
-constexpr int GROUP = 128;       // K3's target group
+constexpr int QPW = 4;            // K2: queries per warp
+constexpr int K2_WARPS = 8;       // K2: warps per CTA
+constexpr int TT = 1024;          // K2: targets per shared-memory tile
+constexpr int GQ = 128;           // K3: queries per CTA
+constexpr int GT = 1024;          // K3: targets per tile (8 groups)
+constexpr int GROUP = 128;        // K3's target group
 constexpr float BIG = 3.0e38f;
+constexpr unsigned EMPTY_BITS = 0x7F61B1E7u;   // the float just above BIG
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
+// ((pen + dx^2) + dy^2) + dz^2, not yet clamped at BIG
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float tx, float ty, float tz,
-                                         float pen) {
-  const float dx = __fsub_rn(qx, tx);
-  const float dy = __fsub_rn(qy, ty);
-  const float dz = __fsub_rn(qz, tz);
-  const float d = __fadd_rn(__fadd_rn(__fadd_rn(pen, __fmul_rn(dx, dx)),
-                                      __fmul_rn(dy, dy)),
-                            __fmul_rn(dz, dz));
-  return fminf(d, BIG);
+                                         float4 t) {
+  const float dx = __fsub_rn(qx, t.x);
+  const float dy = __fsub_rn(qy, t.y);
+  const float dz = __fsub_rn(qz, t.z);
+  return __fadd_rn(__fadd_rn(__fadd_rn(t.w, __fmul_rn(dx, dx)),
+                             __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
 }
 
-// Stage targets [j0, j0 + n) of the AoS (M, 3) cloud and their penalties
-// into shared memory as x, y, z, pen rows.
-__device__ __forceinline__ void load_tile(float (*s)[TT],
+// Targets [j0, j0 + n) of the AoS (M, 3) cloud and their penalties as
+// (x, y, z, pen) float4s; targets at or past m get an infinite penalty.
+__device__ __forceinline__ void load_tile(float4* s,
                                           const float* __restrict__ tgt,
                                           const float* __restrict__ pen,
-                                          int j0, int n) {
-  const float* src = tgt + 3ll * j0;
-  for (int e = threadIdx.x; e < 3 * n; e += THREADS) s[e % 3][e / 3] = src[e];
-  for (int e = threadIdx.x; e < n; e += THREADS) s[3][e] = pen[j0 + e];
+                                          int j0, int n, int m) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int j = j0 + e;
+    if (j < m) {
+      const float* p = tgt + 3ll * j;
+      s[e] = make_float4(p[0], p[1], p[2], pen[j]);
+    } else {
+      s[e] = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7F800000));
+    }
+  }
 }
 
+// (d, j) order with j unsigned: an empty slot (EMPTY, -1) is last.
+__device__ __forceinline__ bool key_less(float da, int ja, float db,
+                                         int jb) {
+  return da < db || (da == db && static_cast<unsigned>(ja) <
+                                     static_cast<unsigned>(jb));
+}
+
+// (d, j) enters a warp's list, lane r holding entry r in ascending order;
+// `before` is true on the lanes whose entry stays ahead of it.  Lanes from
+// its slot on shift up by one, and lane 31's entry drops out.
+__device__ __forceinline__ void warp_insert(float& h, int& l, float d,
+                                            int j, bool before, int lane) {
+  const int pos = __popc(__ballot_sync(FULL, before));
+  const float hu = __shfl_up_sync(FULL, h, 1);
+  const int lu = __shfl_up_sync(FULL, l, 1);
+  if (lane > pos) {
+    h = hu;
+    l = lu;
+  } else if (lane == pos) {
+    h = d;
+    l = j;
+  }
+}
+
+// What a lane's unclamped distance is tested against: entry kk - 1, or
+// NaN while that is an empty slot, so that !(d >= bound) passes every
+// distance, an overflowing invalid one too.
+__device__ __forceinline__ float bound_of(float last) {
+  return last > BIG ? __int_as_float(0x7FC00000) : last;
+}
+
+// Grid ceil(n / (QPW * K2_WARPS / split)) CTAs of 32 * K2_WARPS threads.
+// Warp w serves query group w / split (QPW queries) and scans slice
+// w % split of every tile.
 template <int KK>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * K2_WARPS)
 knn_candidates_kernel(const float* __restrict__ query, int n,
                       const float* __restrict__ tgt,
-                      const float* __restrict__ pen, int m,
+                      const float* __restrict__ pen, int m, int split,
                       float* __restrict__ val, int* __restrict__ idx) {
-  __shared__ float s[4][TT];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = i < n;
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (live) {
-    qx = query[3ll * i + 0];
-    qy = query[3ll * i + 1];
-    qz = query[3ll * i + 2];
-  }
-  // an empty slot is (BIG, -1): after every real candidate, BIG ones too
-  const unsigned long long init_key =
-      (static_cast<unsigned long long>(__float_as_uint(BIG)) << 32) |
-      0xFFFFFFFFull;
-  unsigned long long best[KK];
+  // the tile, then the merge's lists
+  __shared__ float4 tile[TT];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int s = w % split;
+  const int q0 = (blockIdx.x * (K2_WARPS / split) + w / split) * QPW;
+  const float empty = __uint_as_float(EMPTY_BITS);
+  float qx[QPW], qy[QPW], qz[QPW], h[QPW], last[QPW], bound[QPW];
+  int l[QPW];
 #pragma unroll
-  for (int r = 0; r < KK; ++r) best[r] = init_key;
+  for (int q = 0; q < QPW; ++q) {
+    // a query past n scans as the last one and writes nothing
+    const long long iq = min(q0 + q, n - 1);
+    qx[q] = query[3 * iq + 0];
+    qy[q] = query[3 * iq + 1];
+    qz[q] = query[3 * iq + 2];
+    h[q] = empty;
+    l[q] = -1;
+    last[q] = empty;
+    bound[q] = bound_of(empty);
+  }
+  const int lo = s * TT / split;
+  const int hi = (s + 1) * TT / split;
 
   for (int j0 = 0; j0 < m; j0 += TT) {
     const int nt = min(TT, m - j0);
     __syncthreads();            // the previous tile is consumed
-    load_tile(s, tgt, pen, j0, nt);
+    load_tile(tile, tgt, pen, j0, nt, m);
     __syncthreads();
-    if (!live) continue;
-#pragma unroll 4
-    for (int j = 0; j < nt; ++j) {
-      const float d = sq_dist(qx, qy, qz, s[0][j], s[1][j], s[2][j], s[3][j]);
-      const unsigned long long key =
-          (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
-          static_cast<unsigned int>(j0 + j);
-      if (key < best[KK - 1]) {
-        // replace the largest, then one compare-exchange pass down
-        best[KK - 1] = key;
+    const int end = min(hi, nt);
+    const float4* tp = tile + lo + lane;
+    const int lim = end - lane;
+    for (int b = lo; b < end; b += 32, tp += 32) {
+      const float4 t = *tp;   // past `end`: never a candidate
+      float d[QPW];
+      bool enter[QPW];
+      bool any = false;
 #pragma unroll
-        for (int r = KK - 1; r > 0; --r) {
-          const unsigned long long a = best[r - 1], b = best[r];
-          const bool swap = b < a;
-          best[r - 1] = swap ? b : a;
-          best[r] = swap ? a : b;
+      for (int q = 0; q < QPW; ++q) {
+        d[q] = sq_dist(qx[q], qy[q], qz[q], t);
+        enter[q] = b < lim && !(d[q] >= bound[q]);
+        any |= enter[q];
+      }
+      if (!__any_sync(FULL, any)) continue;
+#pragma unroll
+      for (int q = 0; q < QPW; ++q) {
+        unsigned ball = __ballot_sync(FULL, enter[q]);
+        if (ball == 0) continue;
+        while (ball) {
+          const int c = __ffs(ball) - 1;
+          ball &= ball - 1;
+          const float dc = fminf(__shfl_sync(FULL, d[q], c), BIG);
+          warp_insert(h[q], l[q], dc, j0 + b + c, h[q] <= dc, lane);
+        }
+        last[q] = __shfl_sync(FULL, h[q], KK - 1);
+        bound[q] = bound_of(last[q]);
+      }
+    }
+  }
+
+  if (split > 1) {
+    // the group's other warps leave their lists in shared memory; its
+    // warp 0 takes, list by list, the first kk entries that beat its own
+    // entry kk - 1, by the full (d, j) order
+    float* mh = reinterpret_cast<float*>(tile);
+    int* ml = reinterpret_cast<int*>(mh + K2_WARPS * QPW * 32);
+    __syncthreads();            // the last tile is consumed
+#pragma unroll
+    for (int q = 0; q < QPW; ++q) {
+      mh[(w * QPW + q) * 32 + lane] = h[q];
+      ml[(w * QPW + q) * 32 + lane] = l[q];
+    }
+    __syncthreads();
+    if (s != 0) return;
+    for (int v = 1; v < split; ++v) {
+#pragma unroll
+      for (int q = 0; q < QPW; ++q) {
+        const float dv = mh[((w + v) * QPW + q) * 32 + lane];
+        const int jv = ml[((w + v) * QPW + q) * 32 + lane];
+        int last_j = __shfl_sync(FULL, l[q], KK - 1);
+        unsigned ball = __ballot_sync(
+            FULL, lane < KK && key_less(dv, jv, last[q], last_j));
+        while (ball) {
+          const int c = __ffs(ball) - 1;
+          ball &= ball - 1;
+          const float dc = __shfl_sync(FULL, dv, c);
+          const int jc = __shfl_sync(FULL, jv, c);
+          if (key_less(dc, jc, last[q], last_j)) {
+            warp_insert(h[q], l[q], dc, jc,
+                        lane < KK && key_less(h[q], l[q], dc, jc), lane);
+            last[q] = __shfl_sync(FULL, h[q], KK - 1);
+            last_j = __shfl_sync(FULL, l[q], KK - 1);
+          }
         }
       }
     }
   }
-  if (!live) return;
+  // lanes r < kk write entry r; an empty slot leaves as (BIG, -1)
 #pragma unroll
-  for (int r = 0; r < KK; ++r) {
-    val[static_cast<long long>(i) * KK + r] =
-        __uint_as_float(static_cast<unsigned int>(best[r] >> 32));
-    idx[static_cast<long long>(i) * KK + r] =
-        static_cast<int>(static_cast<unsigned int>(best[r] & 0xFFFFFFFFull));
+  for (int q = 0; q < QPW; ++q) {
+    const long long i = q0 + q;
+    if (i < n && lane < KK) {
+      const bool filled = h[q] != empty;
+      val[i * KK + lane] = filled ? h[q] : BIG;
+      idx[i * KK + lane] = filled ? l[q] : -1;
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Grid (ceil(n / 128), chunks) of 128 threads: CTA (b, s) takes queries
+// [128 b, 128 b + 128) and groups [s * gpc, min((s + 1) * gpc, ng)).
+__global__ void __launch_bounds__(GQ)
 group_min_kernel(const float* __restrict__ query, int n,
                  const float* __restrict__ tgt,
-                 const float* __restrict__ pen, int m,
+                 const float* __restrict__ pen, int m, int gpc,
                  float* __restrict__ out) {
-  __shared__ float s[4][TT];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = i < n;
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (live) {
-    qx = query[3ll * i + 0];
-    qy = query[3ll * i + 1];
-    qz = query[3ll * i + 2];
-  }
-  for (int j0 = 0; j0 < m; j0 += TT) {
-    const int nt = min(TT, m - j0);
+  __shared__ float4 s[GT];
+  const int i = blockIdx.x * GQ + threadIdx.x;
+  const long long iq = min(i, n - 1);
+  const float qx = query[3 * iq + 0];
+  const float qy = query[3 * iq + 1];
+  const float qz = query[3 * iq + 2];
+  const int ng = (m + GROUP - 1) / GROUP;
+  const int g0 = blockIdx.y * gpc;
+  const int j_end = min(g0 + gpc, ng) * GROUP;
+  for (int j0 = g0 * GROUP; j0 < j_end; j0 += GT) {
+    const int nt = min(GT, j_end - j0);     // whole groups
     __syncthreads();
-    load_tile(s, tgt, pen, j0, nt);
+    load_tile(s, tgt, pen, j0, nt, m);
     __syncthreads();
-    if (!live) continue;
-    for (int g0 = 0; g0 < nt; g0 += GROUP) {
-      const int ng = min(GROUP, nt - g0);
-      float best = BIG;         // targets past m count as BIG, as padding
+    for (int g = 0; g < nt; g += GROUP) {
+      // four independent chains; the clamp at BIG is their start value,
+      // and padding (infinite penalty) never goes below it
+      float a0 = BIG, a1 = BIG, a2 = BIG, a3 = BIG;
 #pragma unroll 4
-      for (int j = g0; j < g0 + ng; ++j)
-        best = fminf(best, sq_dist(qx, qy, qz, s[0][j], s[1][j], s[2][j],
-                                   s[3][j]));
+      for (int j = g; j < g + GROUP; j += 4) {
+        a0 = fminf(a0, sq_dist(qx, qy, qz, s[j + 0]));
+        a1 = fminf(a1, sq_dist(qx, qy, qz, s[j + 1]));
+        a2 = fminf(a2, sq_dist(qx, qy, qz, s[j + 2]));
+        a3 = fminf(a3, sq_dist(qx, qy, qz, s[j + 3]));
+      }
       // (groups, queries): consecutive threads write consecutive addresses
-      out[static_cast<long long>((j0 + g0) / GROUP) * n + i] = best;
+      if (i < n)
+        out[static_cast<long long>((j0 + g) / GROUP) * n + i] =
+            fminf(fminf(a0, a1), fminf(a2, a3));
     }
   }
 }
 
 template <int KK>
 int launch_candidates(const float* q, int n, const float* t, const float* p,
-                      int m, float* val, int* idx, cudaStream_t stream) {
-  const int blocks = (n + THREADS - 1) / THREADS;
-  knn_candidates_kernel<KK><<<blocks, THREADS, 0, stream>>>(q, n, t, p, m,
-                                                            val, idx);
+                      int m, int split, float* val, int* idx,
+                      cudaStream_t stream) {
+  const int per_cta = QPW * K2_WARPS / split;
+  const int blocks = (n + per_cta - 1) / per_cta;
+  knn_candidates_kernel<KK><<<blocks, 32 * K2_WARPS, 0, stream>>>(
+      q, n, t, p, m, split, val, idx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -176,17 +314,20 @@ int launch_candidates(const float* q, int n, const float* t, const float* p,
 // Launches K2 on `stream`; returns cudaGetLastError() (0 on success).
 // query (n, 3) f32, tgt (m, 3) f32, pen (m,) f32 (0 valid, BIG invalid);
 // val (n, kk) f32 ascending, idx (n, kk) int32; slots past the m-th
-// candidate hold (BIG, -1).  1 <= kk <= 16.
+// candidate hold (BIG, -1).  1 <= kk <= 16; split in {1, 2, 4, 8}: slices
+// of the targets per query.
 extern "C" int dcreg_knn_candidates(const float* query, int n,
                                     const float* tgt, const float* pen,
-                                    int m, int kk, float* val, int* idx,
-                                    void* stream) {
+                                    int m, int kk, int split, float* val,
+                                    int* idx, void* stream) {
   if (n <= 0) return 0;
+  if (split < 1 || split > K2_WARPS || K2_WARPS % split != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kk) {
 #define DCREG_KK(K) \
   case K:           \
-    return launch_candidates<K>(query, n, tgt, pen, m, val, idx, s);
+    return launch_candidates<K>(query, n, tgt, pen, m, split, val, idx, s);
     DCREG_KK(1) DCREG_KK(2) DCREG_KK(3) DCREG_KK(4) DCREG_KK(5) DCREG_KK(6)
     DCREG_KK(7) DCREG_KK(8) DCREG_KK(9) DCREG_KK(10) DCREG_KK(11)
     DCREG_KK(12) DCREG_KK(13) DCREG_KK(14) DCREG_KK(15) DCREG_KK(16)
@@ -197,13 +338,16 @@ extern "C" int dcreg_knn_candidates(const float* query, int n,
 }
 
 // Launches K3 on `stream`; returns cudaGetLastError() (0 on success).
-// query (n, 3), tgt (m, 3), pen (m,) f32; out (ceil(m / 128), n) f32.
+// query (n, 3), tgt (m, 3), pen (m,) f32; out (ceil(m / 128), n) f32;
+// chunks of gpc >= 1 groups, ceil(ceil(m / 128) / gpc) of them.
 extern "C" int dcreg_knn_group_min(const float* query, int n,
                                    const float* tgt, const float* pen, int m,
-                                   float* out, void* stream) {
+                                   int gpc, float* out, void* stream) {
   if (n <= 0 || m <= 0) return 0;
-  const int blocks = (n + THREADS - 1) / THREADS;
-  group_min_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      query, n, tgt, pen, m, out);
+  if (gpc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int ng = (m + GROUP - 1) / GROUP;
+  const dim3 grid((n + GQ - 1) / GQ, (ng + gpc - 1) / gpc);
+  group_min_kernel<<<grid, GQ, 0, static_cast<cudaStream_t>(stream)>>>(
+      query, n, tgt, pen, m, gpc, out);
   return static_cast<int>(cudaGetLastError());
 }

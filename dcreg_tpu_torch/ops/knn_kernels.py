@@ -27,6 +27,15 @@ PyTorch twin, which computes the same keys with the same float operations
 in the same order.  The twins are public (``knn_candidates_plain``,
 ``group_min_plain``) so that the kernels can be checked against them on
 the card.
+
+Both kernels can split the targets.  Where N is too small to fill the
+card, K2 gives each of a query's S warps one slice of every tile of TILE
+targets (``knn_slices``) and merges the slices' lists exactly
+(``knn_candidates_sliced_plain`` and ``merge_candidate_keys`` are that
+split and merge in plain torch); K3 gives each CTA a chunk of whole
+groups (``group_chunks``).  S and the chunk size are functions of the
+shapes and the card's SM count only (``_choose_split``,
+``_choose_group_chunk``), so no launch waits on the card.
 """
 from __future__ import annotations
 
@@ -41,6 +50,21 @@ BIG = 3.0e38
 GROUP = 128
 MAX_KK = 16
 INIT_LOW = 0xFFFFFFFF            # index bits of an empty K2 slot (-1)
+# the 64-bit key of an empty K2 slot: (bits of f32 BIG, INIT_LOW)
+INIT_KEY = (0x7F61B1E6 << 32) | INIT_LOW
+# K2's layout: CTAs of K2_WARPS warps of QUERIES_PER_WARP queries each,
+# sharing tiles of TILE targets.  With a split S > 1 the S warps of a
+# query group each scan slice s of every tile and their lists are merged;
+# S is the least power of two up to K2_WARPS that gives the card
+# K2_WARPS_PER_SM warps per SM
+QUERIES_PER_WARP = 4
+K2_WARPS = 8
+TILE = 1024
+K2_WARPS_PER_SM = 8
+# K3's layout: CTAs of 128 queries and one chunk of whole groups each,
+# about K3_CTAS_PER_SM CTAs per SM
+K3_QUERIES_PER_CTA = 128
+K3_CTAS_PER_SM = 8
 
 CSRC = cuda_build.CSRC / "knn.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
@@ -57,9 +81,9 @@ def build_library() -> dict:
 def _library():
     lib = ctypes.CDLL(build_library()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dcreg_knn_candidates.argtypes = [p, i, p, p, i, i, p, p, p]
+    lib.dcreg_knn_candidates.argtypes = [p, i, p, p, i, i, i, p, p, p]
     lib.dcreg_knn_candidates.restype = i
-    lib.dcreg_knn_group_min.argtypes = [p, i, p, p, i, p, p]
+    lib.dcreg_knn_group_min.argtypes = [p, i, p, p, i, i, p, p]
     lib.dcreg_knn_group_min.restype = i
     return lib
 
@@ -101,14 +125,29 @@ def _query_chunk(n_targets: int, device) -> int:
 # K2
 # ---------------------------------------------------------------------------
 
+def _decode(key):
+    """(val f32, idx int32) of int64 keys; INIT_LOW index bits give -1."""
+    val = torch.bitwise_right_shift(key, 32).to(torch.int32).view(
+        torch.float32)
+    low = torch.bitwise_and(key, INIT_LOW)
+    return val, torch.where(low == INIT_LOW, -1, low).to(torch.int32)
+
+
+def _pad_keys(key, kk: int):
+    """(N, C) keys with empty slots appended up to kk columns."""
+    if key.shape[1] >= kk:
+        return key
+    return torch.cat([key, torch.full((key.shape[0], kk - key.shape[1]),
+                                      INIT_KEY, dtype=torch.int64,
+                                      device=key.device)], 1)
+
+
 def knn_candidates_plain(query, target, pen, kk: int):
     """Plain PyTorch twin of K2: (val (N, kk) f32 ascending, idx (N, kk)
     int32), the kk smallest (distance, index) keys of each query; slots
     past the M-th candidate hold (BIG, -1)."""
     n, m = query.shape[0], target.shape[0]
     dev = query.device
-    big_bits = torch.tensor(BIG, dtype=torch.float32).view(torch.int32)
-    init = (int(big_bits) << 32) | INIT_LOW
     cols = torch.arange(m, dtype=torch.int64, device=dev)
     keys = []
     step = _query_chunk(m, dev)
@@ -120,27 +159,82 @@ def knn_candidates_plain(query, target, pen, kk: int):
                                sorted=True).values)
     key = torch.cat(keys) if keys else torch.empty(
         (0, min(kk, m)), dtype=torch.int64, device=dev)
-    if key.shape[1] < kk:
-        key = torch.cat([key, torch.full((n, kk - key.shape[1]), init,
-                                         dtype=torch.int64, device=dev)], 1)
-    val = torch.bitwise_right_shift(key, 32).to(torch.int32).view(
-        torch.float32)
-    low = torch.bitwise_and(key, INIT_LOW)
-    idx = torch.where(low == INIT_LOW, -1, low).to(torch.int32)
-    return val, idx
+    return _decode(_pad_keys(key, kk))
+
+
+def knn_slices(m: int, nslices: int, device=None):
+    """The targets each of K2's ``nslices`` split warps scans: slice w takes
+    [w * TILE // nslices, (w + 1) * TILE // nslices) of every tile of
+    TILE targets, in the kernel's integer arithmetic.  A list of
+    ascending int64 index tensors that partition range(m); a slice may be
+    empty."""
+    j = torch.arange(m, device=device)
+    bounds = torch.tensor([(w + 1) * TILE // nslices
+                           for w in range(nslices)], device=device)
+    owner = torch.searchsorted(bounds, j % TILE, right=True)
+    return [j[owner == w] for w in range(nslices)]
+
+
+def knn_candidates_sliced_plain(query, target, pen, kk: int, nslices: int):
+    """K2's split in plain torch: the twin's kk candidates of every query
+    over each slice of ``knn_slices`` alone.  Returns (val, idx), each
+    (nslices, N, kk), with indices into the whole target."""
+    vals, idxs = [], []
+    for sl in knn_slices(target.shape[0], nslices, query.device):
+        v, i = knn_candidates_plain(query, target[sl].contiguous(),
+                                    pen[sl].contiguous(), kk)
+        vals.append(v)
+        if sl.numel():
+            i = torch.where(i >= 0, sl[i.clamp(min=0).long()], -1)
+        idxs.append(i.to(torch.int32))
+    return torch.stack(vals), torch.stack(idxs)
+
+
+def merge_candidate_keys(val, idx, kk: int):
+    """Plain twin of K2's merge: (S, N, C) candidate lists (any order of
+    slices and entries; empty slots (BIG, -1)) -> (val, idx), each
+    (N, kk), the kk smallest (distance, index) pairs of each query.  The
+    pairs are unique per query, so the result does not depend on the
+    order of the slices."""
+    s, n, c = val.shape
+    key = torch.bitwise_or(
+        torch.bitwise_left_shift(val.view(torch.int32).to(torch.int64), 32),
+        torch.bitwise_and(idx.to(torch.int64), INIT_LOW))
+    key = key.permute(1, 0, 2).reshape(n, s * c)
+    key = torch.topk(key, min(kk, s * c), dim=1, largest=False,
+                     sorted=True).values
+    return _decode(_pad_keys(key, kk))
+
+
+def _choose_split(n: int, sms: int) -> int:
+    """K2's split: target slices per query, from N and the card's SM count
+    only (no host sync)."""
+    qwarps = -(-n // QUERIES_PER_WARP)
+    split = 1
+    while split < K2_WARPS and qwarps * split < sms * K2_WARPS_PER_SM:
+        split *= 2
+    return split
 
 
 def _launch_candidates(query, target, pen, kk):
     n, m = query.shape[0], target.shape[0]
-    val = torch.empty((n, kk), dtype=torch.float32, device=query.device)
-    idx = torch.empty((n, kk), dtype=torch.int32, device=query.device)
+    dev = query.device
+    val = torch.empty((n, kk), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, kk), dtype=torch.int32, device=dev)
     fn = _library().dcreg_knn_candidates
-    stream = torch.cuda.current_stream(query.device).cuda_stream
+    split = _choose_split(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, kk,
-            val.data_ptr(), idx.data_ptr(), stream)
+            split, val.data_ptr(), idx.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K2 knn kernel launch failed: cudaError {rc}")
     knn_candidates.launches += 1
+    per_cta = QUERIES_PER_WARP * K2_WARPS // split
+    knn_candidates.last_grid = {
+        "ctas": -(-n // per_cta), "warps_per_cta": K2_WARPS,
+        "queries_per_warp": QUERIES_PER_WARP, "queries_per_cta": per_cta,
+        "split": split}
     return val, idx
 
 
@@ -157,6 +251,7 @@ def knn_candidates(query, target, pen, kk: int):
 
 
 knn_candidates.launches = 0
+knn_candidates.last_grid = None
 
 
 # ---------------------------------------------------------------------------
@@ -179,18 +274,54 @@ def group_min_plain(query, target, pen):
     return g.T.contiguous()
 
 
+def _choose_group_chunk(n: int, m: int, sms: int) -> int:
+    """Groups per K3 chunk, from N, M and the card's SM count only: the
+    (query blocks, chunks) grid holds about K3_CTAS_PER_SM CTAs per SM,
+    at least one group per chunk."""
+    ng = -(-m // GROUP)
+    qblocks = -(-n // K3_QUERIES_PER_CTA)
+    want = max(1, min(ng, -(-sms * K3_CTAS_PER_SM // max(qblocks, 1))))
+    return -(-ng // want)
+
+
+def group_chunks(m: int, gpc: int):
+    """(lo, hi) int64 tensors of K3's chunks: chunk s takes groups
+    [s * gpc, min((s + 1) * gpc, ceil(M / 128))), as the kernel does."""
+    ng = -(-m // GROUP)
+    lo = torch.arange(0, ng, gpc)
+    return lo, torch.clamp(lo + gpc, max=ng)
+
+
+def group_min_chunked_plain(query, target, pen, gpc: int):
+    """K3's split in plain torch: the twin on each chunk's targets alone,
+    its rows placed at the chunk's groups."""
+    m = target.shape[0]
+    out = []
+    for g0, g1 in zip(*group_chunks(m, gpc)):
+        j0, j1 = int(g0) * GROUP, min(int(g1) * GROUP, m)
+        out.append(group_min_plain(query, target[j0:j1].contiguous(),
+                                   pen[j0:j1].contiguous()))
+    return torch.cat(out)
+
+
 def _launch_group_min(query, target, pen):
     n, m = query.shape[0], target.shape[0]
-    out = torch.empty((-(-m // GROUP), n), dtype=torch.float32,
-                      device=query.device)
+    dev = query.device
+    out = torch.empty((-(-m // GROUP), n), dtype=torch.float32, device=dev)
     fn = _library().dcreg_knn_group_min
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m,
+    gpc = _choose_group_chunk(
+        n, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, gpc,
             out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K3 group-min kernel launch failed: cudaError "
                            f"{rc}")
     group_min.launches += 1
+    chunks = -(-out.shape[0] // gpc)
+    group_min.last_grid = {
+        "ctas": -(-n // K3_QUERIES_PER_CTA) * chunks, "chunks": chunks,
+        "groups_per_chunk": gpc, "queries_per_cta": K3_QUERIES_PER_CTA}
     return out
 
 
@@ -206,6 +337,7 @@ def group_min(query, target, pen):
 
 
 group_min.launches = 0
+group_min.last_grid = None
 
 
 # ---------------------------------------------------------------------------
