@@ -24,18 +24,26 @@ sm_90a), then runs on the card:
   5. K2 and K3 against their plain twins, bit for bit, at (d) the 5-NN
      self query of the 8,192-point cylinder, (e) its nn1, (f) 65,536
      points with 30% of the targets invalid, where ``knn_grouped`` must
-     also return what ``knn`` returns, and (g) 333 queries against 1,000
-     targets, 30% invalid; each row prints the grids the wrappers
-     launched;
-  6. the pair harness: the five SO(3) rows of configs/cylinder.yaml
-     through the port's TestRunner (f32) on the 8,192-point synthetic
-     cylinder (source == target), once with the CSR grid search and once
-     with K2 as every iteration's 5-NN, gated on Ours converging with
-     TE < 5 cm and RE < 0.5 deg and flagging a degenerate direction at
-     iteration 0, finite rows, every artifact written, and the two
-     backends agreeing per method (iterations within 1, poses within
-     1e-4 m and 1e-3 deg: the final poses of a method that converged on
-     both, the poses after iteration 10 of any other);
+     also return what ``knn`` returns, (g) 333 queries against 1,000
+     targets, 30% invalid, (h) the O3D engine's normal search (self
+     query, k 30, kk 60) and (i) kk 128 (the moved cylinder against
+     itself), and (j) (g)'s shapes at kk 128; each row prints the grids
+     the wrappers launched;
+  6. the pair harness on the 8,192-point synthetic cylinder (source ==
+     target), f32, through the port's TestRunner, once with the CSR grid
+     search and once with K2 as every iteration's search, for three
+     method matrices (``pair_scenarios``): every row of
+     configs/cylinder.yaml (the SO(3) family, XICP, SuperLoc); the rows
+     only configs/parkinglot.yaml has (O3D, XICP-1, XICP-EQ, XICP-INQ,
+     XICP-OP) with its parameters and the cylinder's poses; the SO(3)
+     rows through the Euler engine.  Gated on every artifact written,
+     finite rows and SuperLoc fields, Ours converging with TE < 5 cm and
+     RE < 0.5 deg and flagging a degenerate direction at iteration 0,
+     O3D launching K2 at kk 60, and the two backends agreeing per method
+     (iterations within 1, poses within 1e-4 m and 1e-3 deg: the final
+     poses of a method that converged on both, the poses after
+     iteration 10 of any other); one Ours, XICP and O3D run each under
+     the profiler;
   7. the ``kernels`` line: K1, K2 and K3 with their launches on each
      path, times, bounds and library times.
 
@@ -116,19 +124,24 @@ def profile_window(name, fn, top=8):
     """Where the time of one call of ``fn`` goes: wall time, device-busy
     share (sum of kernel times over wall time), the port's own kernels,
     the kernels with the most device time and the host-side ops with the
-    most self time, and the CUDA kernels K1's wrapper ran per call, counted
-    by the profiler.  Only
+    most self time, the CUDA kernels K1's wrapper ran per call, counted
+    by the profiler, and K2's wrapper calls per kk.  Only
     events that ran on the card count as device time: a host op's own
     device total repeats its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import knn_kernels as kn
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     k1_before = tk.block_knn_keys.launches
+    k2_before = dict(kn.knn_candidates.launches_by_kk)
     with profile(activities=acts) as prof:
         _, seconds = wall(fn)
     k1_calls = tk.block_knn_keys.launches - k1_before
+    k2_calls = {kk: n - k2_before.get(kk, 0)
+                for kk, n in sorted(kn.knn_candidates.launches_by_kk.items())
+                if n > k2_before.get(kk, 0)}
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -145,7 +158,7 @@ def profile_window(name, fn, top=8):
             "device_busy_share": busy_us / 1e6 / seconds,
             "kernel_launches": sum(e.count for e in on_card),
             "port_kernels": [row(e, dev_us(e)) for e in ours],
-            "k1_calls": k1_calls,
+            "k1_calls": k1_calls, "k2_calls_by_kk": k2_calls,
             "k1_cuda_kernels_per_call": (k1_kernels / k1_calls
                                          if k1_calls else None),
             "top_device": [row(e, dev_us(e)) for e in by_dev],
@@ -468,10 +481,13 @@ def knn_checks(seed, T0, device):
     """K2 and K3 at the shapes of the pair path: (d) the 5-NN self query
     of the 8,192-point cylinder, (e) nn1 of the cylinder moved by the
     initial pose T0 against itself, (f) 65,536 points with 30% of the targets
-    invalid, where knn_grouped must also return what knn returns, and
+    invalid, where knn_grouped must also return what knn returns,
     (g) ragged sizes, 333 queries and 1,000 targets with 30% invalid, which
     hold K2's merge and partial slices and K3's partial chunk and group
-    on the card."""
+    on the card, (h) the O3D engine's normal search, the cylinder's self
+    query at k 30 and kk 60 (two list slots per lane), (i) kk 128
+    (four slots), the moved cylinder against itself, and (j) (g)'s
+    shapes at kk 128, K2's merge with four slots."""
     from dcreg_tpu_torch.ops import knn_kernels as kn
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
     cyl = f32(synthetic_cylinder(seed))
@@ -489,7 +505,12 @@ def knn_checks(seed, T0, device):
             "f_65k_invalid": check_knn("f_65k_invalid", big_q, f32(big),
                                        valid, 5, 10),
             "g_ragged_invalid": check_knn("g_ragged_invalid", small_q,
-                                          f32(small), small_valid, 5, 10)}
+                                          f32(small), small_valid, 5, 10),
+            "h_normals_o3d": check_knn("h_normals_o3d", cyl, cyl, None, 30,
+                                       60),
+            "i_kk128": check_knn("i_kk128", moved, cyl, None, 125, 128),
+            "j_ragged_kk128": check_knn("j_ragged_kk128", small_q,
+                                        f32(small), small_valid, 125, 128)}
     kn.group_min.launches = 0
     dg, ig = kn.knn_grouped(big_q, f32(big), valid, k=5)
     k3_launches = kn.group_min.launches
@@ -503,12 +524,15 @@ def knn_checks(seed, T0, device):
 
 
 # --------------------------------------------------------------------------
-# The pair harness: the method matrix of configs/cylinder.yaml
+# The pair harness: the method matrices of configs/cylinder.yaml and
+# configs/parkinglot.yaml
 # --------------------------------------------------------------------------
 
-CYLINDER_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "configs", "cylinder.yaml")
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+CYLINDER_YAML = os.path.join(CONFIGS, "cylinder.yaml")
+PARKINGLOT_YAML = os.path.join(CONFIGS, "parkinglot.yaml")
 SO3_ROWS = ("ME-SR", "ME-TSVD", "ME-TReg", "FCN-SR", "Ours")
+PARKING_ROWS = ("O3D", "XICP-1", "XICP-EQ", "XICP-INQ", "XICP-OP")
 ARTIFACTS = ("statistics_summary.txt", "complete_log.txt", "all_results.csv",
              "iteration_history.csv", "iteration_details_with_dx.csv",
              "transform_details.csv", "iteration_timing_provenance.csv",
@@ -517,38 +541,80 @@ ARTIFACTS = ("statistics_summary.txt", "complete_log.txt", "all_results.csv",
              "degeneracy_analysis_last_iter.txt")
 
 
+def pair_scenarios(load_config):
+    """Phase 6's three method matrices, {name: config}, from
+    ``load_config`` (the port's loader; the CPU rehearsal and the tests
+    pass the JAX package's too): "cylinder", every row of
+    configs/cylinder.yaml; "parkinglot", the rows only
+    configs/parkinglot.yaml has (O3D and four XICP variants) with its
+    parameters and the cylinder's poses, since its frames are not in the
+    repository; "euler", the five SO(3) rows of configs/cylinder.yaml
+    through the Euler engine (use_so3_parameterization false)."""
+    cyl = load_config(CYLINDER_YAML)
+    park = load_config(PARKINGLOT_YAML)
+
+    def rows(cfg, names):
+        return cfg._replace(test_methods=tuple(
+            m for m in cfg.test_methods if m[0] in names))
+
+    return {"cylinder": cyl,
+            "parkinglot": rows(park, PARKING_ROWS)._replace(
+                initial_noise=cyl.initial_noise, gt_pose=cyl.gt_pose),
+            "euler": rows(cyl, SO3_ROWS)._replace(
+                use_so3_parameterization=False)}
+
+
 def cylinder_config():
-    from dcreg_tpu_torch.config import load_config, select_methods
-    return select_methods(load_config(CYLINDER_YAML), SO3_ROWS)
+    from dcreg_tpu_torch.config import load_config
+    return load_config(CYLINDER_YAML)
 
 
-def pair_harness(world, backend, device):
-    """The five SO(3) rows of configs/cylinder.yaml through the port's
-    TestRunner (f32) on ``world`` (source == target), with the CSR grid
-    (``backend`` "grid") or K2 (``backend`` "brute") as every
-    iteration's 5-NN, into a temporary folder.  Returns the per-method
-    summary and the K2 launches of the run."""
+def expected_artifacts(cfg):
+    """ARTIFACTS, less pcg.txt where no row of ``cfg`` solves by PCG (the
+    harness writes it for the first PCG row)."""
+    from dcreg_tpu_torch.ops.degeneracy import HandlingMethod
+    pcg = any(h == HandlingMethod.PRECONDITIONED_CG
+              for _, _, h in cfg.methods())
+    return tuple(f for f in ARTIFACTS if pcg or f != "pcg.txt")
+
+
+def pair_harness(world, scenario, cfg, backend, device):
+    """The rows of ``cfg`` through the port's TestRunner (f32) on
+    ``world`` (source == target), with the CSR grid (``backend`` "grid")
+    or brute force (K2, "brute") as every iteration's search, into a
+    temporary folder.  Gates: every artifact written, finite rows in
+    all_results.csv, finite SuperLoc record fields, and in the cylinder
+    matrix Ours converging with TE < 5 cm and RE < 0.5 deg and a
+    degenerate direction flagged at iteration 0.  Returns the per-method
+    summary (with each row's K2 launches in total and per kk) and the
+    run's K2 launches ({"total", "by_kk"})."""
     import csv
     from dcreg_tpu_torch.harness import TestRunner
     from dcreg_tpu_torch.ops import knn_kernels as kn
-    out = tempfile.mkdtemp(prefix=f"dcreg_pair_{backend}_")
+    out = tempfile.mkdtemp(prefix=f"dcreg_pair_{scenario}_{backend}_")
     try:
-        cfg = cylinder_config()._replace(output_folder=out,
-                                         use_grid_index=backend == "grid")
+        cfg = cfg._replace(output_folder=out,
+                           use_grid_index=backend == "grid")
         runner = TestRunner(cfg, dtype=torch.float32, device=device)
         per_method = {}
         t0 = time.perf_counter()
         kn.knn_candidates.launches = 0
+        kn.knn_candidates.launches_by_kk = {}
         runner.load_point_clouds(world, world)
         for name, det, hand in cfg.methods():
-            before = kn.knn_candidates.launches
+            before = dict(kn.knn_candidates.launches_by_kk)
             runner.run_method(name, det, hand)
-            per_method[name] = kn.knn_candidates.launches - before
+            per_method[name] = {
+                kk: n - before.get(kk, 0)
+                for kk, n in sorted(kn.knn_candidates.launches_by_kk.items())
+                if n > before.get(kk, 0)}
         runner.finalize_statistics()
         runner.save_results()
-        launches = kn.knn_candidates.launches
         seconds = time.perf_counter() - t0
-        missing = [f for f in ARTIFACTS
+        launches = {"total": kn.knn_candidates.launches,
+                    "by_kk": dict(sorted(
+                        kn.knn_candidates.launches_by_kk.items()))}
+        missing = [f for f in expected_artifacts(cfg)
                    if not os.path.isfile(os.path.join(out, f))
                    or os.path.getsize(os.path.join(out, f)) == 0]
         with open(os.path.join(out, "all_results.csv")) as f:
@@ -559,31 +625,58 @@ def pair_harness(world, backend, device):
         summary = {}
         for rec in runner.records:
             s = runner.stats[rec.method]
+            sl = getattr(rec, "superloc", None)
             summary[rec.method] = {
                 "iterations": rec.n_iters, "converged": rec.converged,
                 "te_m": s["trans_error_mean"], "re_deg": s["rot_error_mean"],
                 "time_mean_ms": s["time_mean"],
-                "k2_launches": per_method[rec.method],
+                "k2_launches": sum(per_method[rec.method].values()),
+                "k2_launches_by_kk": per_method[rec.method],
                 "mask_iter0": [int(m) for m in
                                rec.result.log.degenerate_mask[0]],
                 "finite_rows": finite.get(rec.method, False),
                 "record": rec}
-        emit({"phase": f"pair_harness_{backend}", "points": len(world),
-              "seconds": seconds, "k2_launches": launches,
+            if sl is not None:
+                sl = dict(sl, uncertainties=[float(u) for u in
+                                             sl["uncertainties"]])
+                summary[rec.method]["superloc"] = sl
+                summary[rec.method]["finite_rows"] &= bool(np.all(
+                    np.isfinite(np.asarray(sl["uncertainties"] + [
+                        sl["cond_full"], sl["cond_rot"],
+                        sl["cond_trans"]], np.float64))))
+        emit({"phase": f"pair_harness_{scenario}_{backend}",
+              "points": len(world), "seconds": seconds,
+              "k2_launches": launches["total"],
+              "k2_launches_by_kk": launches["by_kk"],
               "missing_artifacts": missing,
               "methods": {m: {k: v for k, v in d.items() if k != "record"}
                           for m, d in summary.items()}})
-        ours = summary["Ours"]
-        if missing or not all(d["finite_rows"] for d in summary.values()) \
-                or not (ours["converged"] and ours["te_m"] < 0.05
-                        and ours["re_deg"] < 0.5 and any(ours["mask_iter0"])):
-            raise RuntimeError(f"pair harness ({backend}) gates failed")
-        if backend == "brute" and launches <= 0 and device != "cpu":
-            raise RuntimeError("K2 was not launched by the brute-force run")
-        det, hand = dict((m, (d, h)) for m, d, h in cfg.methods())["Ours"]
-        emit(profile_window(f"pair_ours_profile_{backend}",
-                            lambda: runner.run_single_test("Ours", det,
-                                                           hand)))
+        ok = not missing and all(d["finite_rows"] for d in summary.values())
+        if "Ours" in summary and cfg.use_so3_parameterization:
+            ours = summary["Ours"]
+            ok &= bool(ours["converged"] and ours["te_m"] < 0.05
+                       and ours["re_deg"] < 0.5 and any(ours["mask_iter0"]))
+        if not ok:
+            raise RuntimeError(f"pair harness ({scenario}, {backend}) gates "
+                               "failed")
+        if device != "cpu":
+            if backend == "brute" and launches["total"] <= 0:
+                raise RuntimeError(f"K2 was not launched by the brute-force "
+                                   f"{scenario} run")
+            if "O3D" in summary and not \
+                    summary["O3D"]["k2_launches_by_kk"].get(60):
+                raise RuntimeError("K2 was not launched at kk 60 by O3D")
+        # one method run each under the profiler: Ours of the cylinder
+        # matrix on both backends, XICP and O3D where K2 is the search
+        methods = {m: (d, h) for m, d, h in cfg.methods()}
+        profiled = ["Ours"] if scenario == "cylinder" else []
+        if backend == "brute":
+            profiled += ["XICP", "O3D"]
+        for name in profiled:
+            if name in methods:
+                emit(profile_window(
+                    f"pair_{name.lower()}_profile_{scenario}_{backend}",
+                    lambda: runner.run_single_test(name, *methods[name])))
         return summary, launches
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -631,29 +724,41 @@ def rotation_angle_deg(R):
 
 
 def run_pair(seed: int, device: str = "cuda"):
-    """Phases 5 and 6: K2 and K3 against their plain twins, then the
-    method matrix on both search backends.  Returns the K2 and K3 entries of the
-    ``kernels`` line."""
-    T0 = cylinder_config().initial_matrix()
-    rows, k3_launches = knn_checks(seed, T0, device)
+    """Phases 5 and 6: K2 and K3 against their plain twins, then the three
+    method matrices of ``pair_scenarios`` on both search backends, each
+    method held to its backend agreement.  Returns the K2 and K3 entries
+    of the ``kernels`` line."""
+    from dcreg_tpu_torch.config import load_config
+    scenarios = pair_scenarios(load_config)
+    rows, k3_launches = knn_checks(seed,
+                                   scenarios["cylinder"].initial_matrix(),
+                                   device)
     world = synthetic_cylinder(seed)
-    grid, k2_grid = pair_harness(world, "grid", device)
-    brute, k2_brute = pair_harness(world, "brute", device)
-    diffs = {m: backend_agreement(grid[m]["record"], brute[m]["record"])
-             for m in SO3_ROWS}
-    emit({"phase": "pair_backends_agree", "methods": diffs})
-    bad = [m for m, d in diffs.items() if not d["ok"]]
+    runs, launches, agree = {}, {}, {}
+    for name, cfg in scenarios.items():
+        for backend in ("grid", "brute"):
+            runs[name, backend], launches[f"pair_{name}_{backend}"] = \
+                pair_harness(world, name, cfg, backend, device)
+        grid, brute = runs[name, "grid"], runs[name, "brute"]
+        agree[name] = {m: backend_agreement(grid[m]["record"],
+                                            brute[m]["record"])
+                       for m in grid}
+    emit({"phase": "pair_backends_agree", "matrices": agree})
+    bad = [f"{s}/{m}" for s, d in agree.items() for m, a in d.items()
+           if not a["ok"]]
     if bad:
         raise RuntimeError(f"grid and brute-force backends disagree: {bad}")
     d = rows["d_self_5nn"]
-    launches = {"pair_grid_metrics": k2_grid, "pair_brute": k2_brute}
     k2 = {"name": "K2 knn_candidates", "route": "cuda",
           "source": "dcreg_tpu_torch/csrc/knn.cu",
           "replaces": "dcreg_tpu/ops/pallas_knn.py:47",
-          "launches": k2_grid + k2_brute, "launches_by_path": launches,
+          "launches": sum(v["total"] for v in launches.values()),
+          "launches_by_path": {p: v["total"] for p, v in launches.items()},
+          "launches_by_path_and_kk": {p: v["by_kk"]
+                                      for p, v in launches.items()},
           "launches_per_method_run": {
-              "grid": {m: grid[m]["k2_launches"] for m in SO3_ROWS},
-              "brute": {m: brute[m]["k2_launches"] for m in SO3_ROWS}},
+              f"{s}_{b}": {m: r["k2_launches_by_kk"] for m, r in s_b.items()}
+              for (s, b), s_b in runs.items()},
           "max_abs_err": max(r[0]["max_abs_err"] for r in rows.values()),
           "ms": d[0]["ms"], "plain_ms": d[0]["plain_ms"],
           "bound_ms": d[0]["bound_ms"], "bound_by": d[0]["bound_by"],

@@ -34,8 +34,13 @@
 //    time from a shared-memory tile of 1,024 (x, y, z, pen) float4s: one
 //    LDS.128 per lane serves four pairs, and four independent distance
 //    chains hide each other's latency.  Each query's list lives across the
-//    warp, lane r holding entry r: 32 entries, of which the first kk are
-//    the answer.  A lane's candidate is tested against entry kk - 1 as it
+//    warp in E = 1, 2 or 4 registers per lane (E * 32 >= kk, a template
+//    parameter; with E = 1, kk <= 32 is one too, since a run-time kk
+//    slows the one-slot kernel, the one the frame-scale searches run),
+//    lane r holding entries r, r + 32, ...: 32 E entries, of
+//    which the first kk are the answer.  An insertion shifts each slot up
+//    one lane, and lane 31's entry of slot e moves to lane 0 of slot
+//    e + 1.  A lane's candidate is tested against entry kk - 1 as it
 //    stood when the batch began, one vote per 32 x 4 pairs tells the warp
 //    whether any passes, and those that do go in one at a time, lowest
 //    index first, by ballot and shuffle, with no second test: a candidate
@@ -49,8 +54,9 @@
 //      (the wrapper chooses it from N and the SM count): then the S warps
 //      of a query group each scan [s*1024/S, (s+1)*1024/S) of every tile,
 //      and at the end warp 0 of the group merges the S lists by the full
-//      (d, j) order.  (d, j) is unique per query, so the merge is exact
-//      whatever the order of the slices.
+//      (d, j) order in shared memory (8 KB per list slot, up to 32 KB at
+//      E = 4, over the tile's 16 KB).  (d, j) is unique per query, so the
+//      merge is exact whatever the order of the slices.
 //    - Within a warp's scan the indices grow, so a new candidate goes
 //      after an equal distance, and an empty slot holds the float just
 //      above BIG, so that a BIG candidate (an invalid target) still enters
@@ -116,21 +122,53 @@ __device__ __forceinline__ bool key_less(float da, int ja, float db,
                                      static_cast<unsigned>(jb));
 }
 
-// (d, j) enters a warp's list, lane r holding entry r in ascending order;
-// `before` is true on the lanes whose entry stays ahead of it.  Lanes from
-// its slot on shift up by one, and lane 31's entry drops out.
-__device__ __forceinline__ void warp_insert(float& h, int& l, float d,
-                                            int j, bool before, int lane) {
-  const int pos = __popc(__ballot_sync(FULL, before));
-  const float hu = __shfl_up_sync(FULL, h, 1);
-  const int lu = __shfl_up_sync(FULL, l, 1);
-  if (lane > pos) {
-    h = hu;
-    l = lu;
-  } else if (lane == pos) {
-    h = d;
-    l = j;
+// (d, j) enters a warp's list of E slots, entry p = 32 e + lane held by
+// lane p % 32 in slot p / 32, ascending; `before[e]` is true on the lanes
+// whose entry of slot e stays ahead of it.  Entries from its position on
+// move up by one, lane 31's entry of a slot to lane 0 of the next, and
+// the last entry drops out.  With E > 1, slots wholly ahead of the
+// position keep still (the position is the same on every lane); with one
+// slot there is nothing to skip, and no test.
+template <int E>
+__device__ __forceinline__ void warp_insert(float (&h)[E], int (&l)[E],
+                                            float d, int j,
+                                            const bool (&before)[E],
+                                            int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) pos += __popc(__ballot_sync(FULL, before[e]));
+#pragma unroll
+  for (int e = E - 1; e >= 0; --e) {
+    if (E > 1 && 32 * e + 31 < pos) continue;
+    float hu = __shfl_up_sync(FULL, h[e], 1);
+    int lu = __shfl_up_sync(FULL, l[e], 1);
+    if (e > 0) {                // read before slot e - 1 moves
+      const float hc = __shfl_sync(FULL, h[e > 0 ? e - 1 : 0], 31);
+      const int lc = __shfl_sync(FULL, l[e > 0 ? e - 1 : 0], 31);
+      if (lane == 0) {
+        hu = hc;
+        lu = lc;
+      }
+    }
+    const int p = 32 * e + lane;
+    if (p > pos) {
+      h[e] = hu;
+      l[e] = lu;
+    } else if (p == pos) {
+      h[e] = d;
+      l[e] = j;
+    }
   }
+}
+
+// Entry p of a warp's list, on every lane.
+template <int E, typename T>
+__device__ __forceinline__ T list_entry(const T (&a)[E], int p) {
+  T v = a[0];
+#pragma unroll
+  for (int e = 1; e < E; ++e)
+    if ((p >> 5) == e) v = a[e];
+  return __shfl_sync(FULL, v, p & 31);
 }
 
 // What a lane's unclamped distance is tested against: entry kk - 1, or
@@ -142,22 +180,27 @@ __device__ __forceinline__ float bound_of(float last) {
 
 // Grid ceil(n / (QPW * K2_WARPS / split)) CTAs of 32 * K2_WARPS threads.
 // Warp w serves query group w / split (QPW queries) and scans slice
-// w % split of every tile.
-template <int KK>
+// w % split of every tile.  kk is KK where KK > 0, else kk_arg;
+// 1 <= kk <= 32 E.
+template <int E, int KK>
 __global__ void __launch_bounds__(32 * K2_WARPS)
 knn_candidates_kernel(const float* __restrict__ query, int n,
                       const float* __restrict__ tgt,
-                      const float* __restrict__ pen, int m, int split,
-                      float* __restrict__ val, int* __restrict__ idx) {
-  // the tile, then the merge's lists
-  __shared__ float4 tile[TT];
+                      const float* __restrict__ pen, int m, int kk_arg,
+                      int split, float* __restrict__ val,
+                      int* __restrict__ idx) {
+  const int kk = KK > 0 ? KK : kk_arg;
+  // the tile, then the merge's K2_WARPS * QPW lists of 32 E (d, j)
+  // pairs: 512 E float4s
+  constexpr int SMEM4 = TT > 512 * E ? TT : 512 * E;
+  __shared__ float4 tile[SMEM4];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int s = w % split;
   const int q0 = (blockIdx.x * (K2_WARPS / split) + w / split) * QPW;
   const float empty = __uint_as_float(EMPTY_BITS);
-  float qx[QPW], qy[QPW], qz[QPW], h[QPW], last[QPW], bound[QPW];
-  int l[QPW];
+  float qx[QPW], qy[QPW], qz[QPW], h[QPW][E], last[QPW], bound[QPW];
+  int l[QPW][E];
 #pragma unroll
   for (int q = 0; q < QPW; ++q) {
     // a query past n scans as the last one and writes nothing
@@ -165,8 +208,11 @@ knn_candidates_kernel(const float* __restrict__ query, int n,
     qx[q] = query[3 * iq + 0];
     qy[q] = query[3 * iq + 1];
     qz[q] = query[3 * iq + 2];
-    h[q] = empty;
-    l[q] = -1;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      h[q][e] = empty;
+      l[q][e] = -1;
+    }
     last[q] = empty;
     bound[q] = bound_of(empty);
   }
@@ -201,9 +247,12 @@ knn_candidates_kernel(const float* __restrict__ query, int n,
           const int c = __ffs(ball) - 1;
           ball &= ball - 1;
           const float dc = fminf(__shfl_sync(FULL, d[q], c), BIG);
-          warp_insert(h[q], l[q], dc, j0 + b + c, h[q] <= dc, lane);
+          bool before[E];
+#pragma unroll
+          for (int e = 0; e < E; ++e) before[e] = h[q][e] <= dc;
+          warp_insert<E>(h[q], l[q], dc, j0 + b + c, before, lane);
         }
-        last[q] = __shfl_sync(FULL, h[q], KK - 1);
+        last[q] = list_entry<E>(h[q], kk - 1);
         bound[q] = bound_of(last[q]);
       }
     }
@@ -214,46 +263,62 @@ knn_candidates_kernel(const float* __restrict__ query, int n,
     // warp 0 takes, list by list, the first kk entries that beat its own
     // entry kk - 1, by the full (d, j) order
     float* mh = reinterpret_cast<float*>(tile);
-    int* ml = reinterpret_cast<int*>(mh + K2_WARPS * QPW * 32);
+    int* ml = reinterpret_cast<int*>(mh + K2_WARPS * QPW * 32 * E);
     __syncthreads();            // the last tile is consumed
 #pragma unroll
     for (int q = 0; q < QPW; ++q) {
-      mh[(w * QPW + q) * 32 + lane] = h[q];
-      ml[(w * QPW + q) * 32 + lane] = l[q];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        mh[((w * QPW + q) * E + e) * 32 + lane] = h[q][e];
+        ml[((w * QPW + q) * E + e) * 32 + lane] = l[q][e];
+      }
     }
     __syncthreads();
     if (s != 0) return;
     for (int v = 1; v < split; ++v) {
 #pragma unroll
       for (int q = 0; q < QPW; ++q) {
-        const float dv = mh[((w + v) * QPW + q) * 32 + lane];
-        const int jv = ml[((w + v) * QPW + q) * 32 + lane];
-        int last_j = __shfl_sync(FULL, l[q], KK - 1);
-        unsigned ball = __ballot_sync(
-            FULL, lane < KK && key_less(dv, jv, last[q], last_j));
-        while (ball) {
-          const int c = __ffs(ball) - 1;
-          ball &= ball - 1;
-          const float dc = __shfl_sync(FULL, dv, c);
-          const int jc = __shfl_sync(FULL, jv, c);
-          if (key_less(dc, jc, last[q], last_j)) {
-            warp_insert(h[q], l[q], dc, jc,
-                        lane < KK && key_less(h[q], l[q], dc, jc), lane);
-            last[q] = __shfl_sync(FULL, h[q], KK - 1);
-            last_j = __shfl_sync(FULL, l[q], KK - 1);
+        int last_j = list_entry<E>(l[q], kk - 1);
+#pragma unroll
+        for (int ev = 0; ev < E; ++ev) {
+          const float dv = mh[(((w + v) * QPW + q) * E + ev) * 32 + lane];
+          const int jv = ml[(((w + v) * QPW + q) * E + ev) * 32 + lane];
+          unsigned ball = __ballot_sync(
+              FULL, 32 * ev + lane < kk &&
+                        key_less(dv, jv, last[q], last_j));
+          while (ball) {
+            const int c = __ffs(ball) - 1;
+            ball &= ball - 1;
+            const float dc = __shfl_sync(FULL, dv, c);
+            const int jc = __shfl_sync(FULL, jv, c);
+            if (key_less(dc, jc, last[q], last_j)) {
+              bool before[E];
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                before[e] = 32 * e + lane < kk &&
+                            key_less(h[q][e], l[q][e], dc, jc);
+              warp_insert<E>(h[q], l[q], dc, jc, before, lane);
+              last[q] = list_entry<E>(h[q], kk - 1);
+              last_j = list_entry<E>(l[q], kk - 1);
+            }
           }
         }
       }
     }
   }
-  // lanes r < kk write entry r; an empty slot leaves as (BIG, -1)
+  // entry p < kk leaves from lane p % 32, slot p / 32; an empty slot
+  // leaves as (BIG, -1)
 #pragma unroll
   for (int q = 0; q < QPW; ++q) {
     const long long i = q0 + q;
-    if (i < n && lane < KK) {
-      const bool filled = h[q] != empty;
-      val[i * KK + lane] = filled ? h[q] : BIG;
-      idx[i * KK + lane] = filled ? l[q] : -1;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int p = 32 * e + lane;
+      if (i < n && p < kk) {
+        const bool filled = h[q][e] != empty;
+        val[i * kk + p] = filled ? h[q][e] : BIG;
+        idx[i * kk + p] = filled ? l[q][e] : -1;
+      }
     }
   }
 }
@@ -298,14 +363,14 @@ group_min_kernel(const float* __restrict__ query, int n,
   }
 }
 
-template <int KK>
+template <int E, int KK>
 int launch_candidates(const float* q, int n, const float* t, const float* p,
-                      int m, int split, float* val, int* idx,
+                      int m, int kk, int split, float* val, int* idx,
                       cudaStream_t stream) {
   const int per_cta = QPW * K2_WARPS / split;
   const int blocks = (n + per_cta - 1) / per_cta;
-  knn_candidates_kernel<KK><<<blocks, 32 * K2_WARPS, 0, stream>>>(
-      q, n, t, p, m, split, val, idx);
+  knn_candidates_kernel<E, KK><<<blocks, 32 * K2_WARPS, 0, stream>>>(
+      q, n, t, p, m, kk, split, val, idx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -314,27 +379,39 @@ int launch_candidates(const float* q, int n, const float* t, const float* p,
 // Launches K2 on `stream`; returns cudaGetLastError() (0 on success).
 // query (n, 3) f32, tgt (m, 3) f32, pen (m,) f32 (0 valid, BIG invalid);
 // val (n, kk) f32 ascending, idx (n, kk) int32; slots past the m-th
-// candidate hold (BIG, -1).  1 <= kk <= 16; split in {1, 2, 4, 8}: slices
-// of the targets per query.
+// candidate hold (BIG, -1).  1 <= kk <= 128, kept in E = 1, 2 or 4 slots
+// per lane (one instance per kk up to 32, one per E above); split in
+// {1, 2, 4, 8}: slices of the targets per query.
 extern "C" int dcreg_knn_candidates(const float* query, int n,
                                     const float* tgt, const float* pen,
                                     int m, int kk, int split, float* val,
                                     int* idx, void* stream) {
   if (n <= 0) return 0;
-  if (split < 1 || split > K2_WARPS || K2_WARPS % split != 0)
+  if (split < 1 || split > K2_WARPS || K2_WARPS % split != 0 || kk < 1 ||
+      kk > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kk) {
-#define DCREG_KK(K) \
-  case K:           \
-    return launch_candidates<K>(query, n, tgt, pen, m, split, val, idx, s);
+#define DCREG_KK(K)                                                        \
+  case K:                                                                  \
+    return launch_candidates<1, K>(query, n, tgt, pen, m, kk, split, val, \
+                                   idx, s);
     DCREG_KK(1) DCREG_KK(2) DCREG_KK(3) DCREG_KK(4) DCREG_KK(5) DCREG_KK(6)
     DCREG_KK(7) DCREG_KK(8) DCREG_KK(9) DCREG_KK(10) DCREG_KK(11)
     DCREG_KK(12) DCREG_KK(13) DCREG_KK(14) DCREG_KK(15) DCREG_KK(16)
+    DCREG_KK(17) DCREG_KK(18) DCREG_KK(19) DCREG_KK(20) DCREG_KK(21)
+    DCREG_KK(22) DCREG_KK(23) DCREG_KK(24) DCREG_KK(25) DCREG_KK(26)
+    DCREG_KK(27) DCREG_KK(28) DCREG_KK(29) DCREG_KK(30) DCREG_KK(31)
+    DCREG_KK(32)
 #undef DCREG_KK
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  if (kk <= 64)
+    return launch_candidates<2, 0>(query, n, tgt, pen, m, kk, split, val,
+                                   idx, s);
+  return launch_candidates<4, 0>(query, n, tgt, pen, m, kk, split, val, idx,
+                                 s);
 }
 
 // Launches K3 on `stream`; returns cudaGetLastError() (0 on success).

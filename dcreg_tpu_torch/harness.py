@@ -1,12 +1,12 @@
 """Test harness: the method matrix over one frame pair, statistics and
 artifacts (counterpart of ``dcreg_tpu/harness.py``).
 
-Host-side Python, as in the JAX package: each method run is one
-``icp_point_to_plane_so3`` call on the device, timed on the host clock
-with the device synchronised; everything after is bookkeeping on numpy.
-The SO(3) family (every detection x handling pair of the config through
-the SO(3) engine) is ported; the XICP, SuperLoc, Open3D-style and Euler
-engines are not yet, and selecting them raises.
+Host-side Python, as in the JAX package: each method run is one engine
+call on the device, timed on the host clock with the device
+synchronised; everything after is bookkeeping on numpy.  The engine of a
+row: O3D ``o3d_icp``, XICP* ``xicp_register``, SuperLoc
+``superloc_register``, any other the SO(3) engine, or the Euler engine
+when ``use_so3_parameterization`` is false.
 """
 from __future__ import annotations
 
@@ -21,6 +21,10 @@ from . import telemetry, writers
 from .config import Config
 from .io.pcd import load_pcd, save_pcd
 from .models.icp import ICPResult, IterationLog, icp_point_to_plane_so3
+from .models.icp_euler import icp_point_to_plane_euler
+from .models.o3d_style import o3d_icp
+from .models.superloc import superloc_register
+from .models.xicp import xicp_register
 from .ops.correspondence import find_correspondences
 from .ops.degeneracy import DetectionMethod, HandlingMethod, analyze
 from .ops.gauss_newton import build_system
@@ -29,10 +33,6 @@ from .ops.metrics import point_to_point_error
 from .ops.solvers import solve as solve_system
 from .ops.voxel_grid import build_grid_index
 from .utils import resolve_device
-
-UNPORTED = ("engine not ported yet (ROADMAP.md Queue 1 item 7: XICP, "
-            "SuperLoc, O3D and the Euler engine)")
-
 
 def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
@@ -92,28 +92,35 @@ class TestRunner:
                 dtype=self.dtype, device=self.device)
         return self
 
-    def _engine(self, method_name):
-        """Raise for the engines the port does not have yet."""
-        if (method_name in ("O3D", "SuperLoc")
-                or method_name.startswith("XICP")
-                or not self.config.use_so3_parameterization):
-            raise NotImplementedError(f"{method_name}: {UNPORTED}")
+    def _engine(self, method_name, detection, handling, params):
+        """fn(R, t) running the row's engine from the pose (R, t)."""
+        cfg = self.config
+        T_gt = self._tensor(cfg.gt_matrix())
+        common = dict(T_gt=T_gt, grid=self.grid, device=self.device)
+        src, tgt = self.source, self.target
+        if method_name == "O3D":
+            return lambda R, t: o3d_icp(src, tgt, R, t, params, **common)
+        if method_name.startswith("XICP"):
+            return lambda R, t: xicp_register(src, tgt, R, t, detection,
+                                              handling, params, cfg.xicp,
+                                              **common)
+        if method_name == "SuperLoc":
+            return lambda R, t: superloc_register(src, tgt, R, t, params,
+                                                  **common)
+        engine = (icp_point_to_plane_so3 if cfg.use_so3_parameterization
+                  else icp_point_to_plane_euler)
+        return lambda R, t: engine(src, tgt, R, t, detection, handling,
+                                   params, **common)
 
     # -- single test ------------------------------------------------------
     def run_single_test(self, method_name: str, detection: DetectionMethod,
                         handling: HandlingMethod, warmup: bool = False):
-        self._engine(method_name)
-        cfg = self.config
-        T0 = self._tensor(cfg.initial_matrix())
-        T_gt = self._tensor(cfg.gt_matrix())
-        params = cfg.icp_params()
-
-        def run():
-            return icp_point_to_plane_so3(
-                self.source, self.target, T0[:3, :3], T0[:3, 3], detection,
-                handling, params, T_gt=T_gt, grid=self.grid,
-                device=self.device)
-
+        """(host ICPResult, ms on the host clock, SuperLocInfo on the host
+        or None) of one run of the row's engine."""
+        T0 = self._tensor(self.config.initial_matrix())
+        engine = self._engine(method_name, detection, handling,
+                              self.config.icp_params())
+        run = lambda: engine(T0[:3, :3], T0[:3, 3])
         if warmup:   # first-call costs outside the timed region
             run()
             _synchronize(self.device)
@@ -121,16 +128,28 @@ class TestRunner:
         result = run()
         _synchronize(self.device)
         time_ms = (time.perf_counter() - t0) * 1e3
-        return result_to_host(result), time_ms
+        superloc_info = None
+        if method_name == "SuperLoc":
+            result, superloc_info = result
+            superloc_info = type(superloc_info)(
+                *[_host(v) for v in superloc_info])
+        return result_to_host(result), time_ms, superloc_info
 
     # -- method loop ------------------------------------------------------
     def run_method(self, method_name, detection, handling):
         cfg = self.config
         for run_idx in range(cfg.num_runs):
-            result, time_ms = self.run_single_test(
+            result, time_ms, superloc_info = self.run_single_test(
                 method_name, detection, handling, warmup=(run_idx == 0))
             rec = writers.MethodRunRecord(method_name, run_idx, result,
                                           time_ms)
+            if superloc_info is not None:
+                rec.superloc = dict(
+                    uncertainties=list(superloc_info.uncertainties),
+                    cond_full=float(superloc_info.cond_full),
+                    cond_rot=float(superloc_info.cond_rot),
+                    cond_trans=float(superloc_info.cond_trans),
+                    is_degenerate=bool(superloc_info.is_degenerate))
             # final p2p metrics on the aligned cloud
             T = self._tensor(rec.final_transform())
             aligned = self.source @ T[:3, :3].T + T[:3, 3]
@@ -142,16 +161,22 @@ class TestRunner:
             rec.p2p_corr = int(n_corr)
             self.records.append(rec)
             if run_idx == 0:
-                self._fill_iteration_times(rec, detection, handling)
+                self._fill_iteration_times(rec, method_name, detection,
+                                           handling)
             if run_idx == 0 and (cfg.save_pcd or cfg.save_error_pcd):
                 self._save_clouds(method_name, aligned)
         return True
 
     # -- per-iteration timing -----------------------------------------------
-    def _fill_iteration_times(self, rec, detection, handling):
+    def _fill_iteration_times(self, rec, method_name, detection, handling):
         """rec.iter_time_ms and its provenance: total / n
         ("uniform_estimate"), or with ``stepped_timing`` each recorded
-        iteration replayed and timed as its own call ("stepped_replay")."""
+        iteration replayed and timed as its own call: the SO(3) family's
+        iteration work ("stepped_replay"), or for the other engines the
+        engine run for one iteration from each recorded pre-iteration
+        pose ("engine_1iter_replay", which includes the engine's set-up,
+        e.g. the normal estimation, so it bounds the iteration from
+        above)."""
         cfg = self.config
         n = max(rec.n_iters, 1)
         rec.iter_time_ms = [rec.time_ms / n] * rec.n_iters
@@ -165,21 +190,29 @@ class TestRunner:
         poses = [(self._tensor(T[:3, :3]), self._tensor(T[:3, 3]))
                  for T in Ts]
 
-        def step(R, t):
-            corr = find_correspondences(source, R, t, target,
-                                        params=params.corr,
-                                        chunk=params.chunk, grid=grid)
-            sysm = build_system(
-                source, R, t, corr,
-                use_weight_derivative=params.use_weight_derivative,
-                weight_slope=params.corr.weight_slope)
-            analysis = analyze(sysm.H, detection, params.thresholds)
-            dx, _ = solve_system(sysm.H, sysm.g, handling, analysis,
-                                 params.thresholds, telemetry=False)
-            return dx
-
+        so3_family = (not method_name.startswith("XICP")
+                      and method_name not in ("SuperLoc", "O3D")
+                      and cfg.use_so3_parameterization)
+        if so3_family:
+            def step(R, t):
+                corr = find_correspondences(source, R, t, target,
+                                            params=params.corr,
+                                            chunk=params.chunk, grid=grid)
+                sysm = build_system(
+                    source, R, t, corr,
+                    use_weight_derivative=params.use_weight_derivative,
+                    weight_slope=params.corr.weight_slope)
+                analysis = analyze(sysm.H, detection, params.thresholds)
+                dx, _ = solve_system(sysm.H, sysm.g, handling, analysis,
+                                     params.thresholds, telemetry=False)
+                return dx
+            provenance = "stepped_replay"
+        else:
+            step = self._engine(method_name, detection, handling,
+                                params._replace(max_iterations=1))
+            provenance = "engine_1iter_replay"
         rec.iter_time_ms = telemetry.stepped_iteration_times(step, poses)
-        rec.iter_time_provenance = "stepped_replay"
+        rec.iter_time_provenance = provenance
 
     def run_all(self):
         if self.source is None:

@@ -86,6 +86,14 @@ _LOG_TRAILING = {
     "W_adaptive": (6, 6), "H": (6, 6)}
 
 
+def log_from_buffer(buf) -> IterationLog:
+    """The structured IterationLog of a packed (I, ROW_SIZE) buffer, as
+    the engines that log inline (XICP, O3D) write it."""
+    from . import logpack
+    return IterationLog(**{name: logpack.unpack(buf, name)
+                           for name in IterationLog._fields})
+
+
 def _empty_log(I, dtype, lead=(), device=None) -> IterationLog:
     """The all-unexecuted log: NaN floats, False flags, 0 counts, -1 PCG
     iterations."""
@@ -149,9 +157,17 @@ def telemetry_row(h: Hist, executed, detection, handling, thresholds,
     analysis = analyze(h.H, detection, thresholds)
     _, sinfo = solve(h.H, h.g, handling, analysis, thresholds,
                      telemetry=True)
-    too_few = h.num_valid < min_effective_points
     R_new, t_new = se3.boxplus(h.R, h.t, h.dx)
-    T_new = se3.se3_matrix(R_new, t_new)
+    return log_rows(h, executed, h.num_valid < min_effective_points, h.dx,
+                    se3.se3_matrix(R_new, t_new), T_gt, analysis, sinfo)
+
+
+def log_rows(h, executed, too_few, dx, T_new, T_gt, ana,
+             sinfo) -> IterationLog:
+    """The log of recorded iterations: ``h``'s H, g, num_valid, rmse,
+    fitness and objective, the applied ``dx``, the pose ``T_new`` after
+    it (errors against ``T_gt``), the analysis ``ana`` and the solver
+    extras ``sinfo``; rows where ``executed`` is False are NaN / 0 / -1."""
     te, re = se3.pose_error(T_gt.expand(T_new.shape), T_new)
 
     def nanify(x):
@@ -159,7 +175,6 @@ def telemetry_row(h: Hist, executed, detection, handling, thresholds,
                              + (1,) * (x.ndim - executed.ndim))
         return torch.where(e, x, float("nan"))
 
-    ana = analysis
     return IterationLog(
         executed=executed & ~too_few,
         effective_points=torch.where(executed, h.num_valid, 0).to(
@@ -167,7 +182,7 @@ def telemetry_row(h: Hist, executed, detection, handling, thresholds,
         corr_num=torch.where(executed, h.num_valid, 0).to(torch.int32),
         rmse=nanify(h.rmse), fitness=nanify(h.fitness),
         objective=nanify(h.objective),
-        gradient=nanify(-h.g), dx=nanify(h.dx), transform=nanify(T_new),
+        gradient=nanify(-h.g), dx=nanify(dx), transform=nanify(T_new),
         trans_error=nanify(te), rot_error_deg=nanify(re),
         eigenvalues_full=nanify(ana.eigenvalues_full),
         singular_values=nanify(ana.singular_values),

@@ -8,6 +8,8 @@ coordinate-wise, ``((pen + dx^2) + dy^2) + dz^2`` clamped at BIG, where
 ``pen`` is 0 for a valid target and BIG for an invalid one; never the
 |q|^2 + |t|^2 - 2 q.t expansion.  ``knn`` re-ranks the candidates with
 exactly computed distances and keeps ``k``, as the JAX ``knn`` does.
+kk runs from 1 to 128, the width of the TPU kernel's list; above that
+the port raises where the TPU kernel keeps its 128.
 
 K3 (``group_min``) returns the per-query minimum of the same distance over
 every group of 128 consecutive targets, stored (groups, queries): phase A
@@ -48,7 +50,9 @@ from .. import cuda_build
 
 BIG = 3.0e38
 GROUP = 128
-MAX_KK = 16
+# K2 keeps 1..MAX_KK candidates per query, in list_slots(kk) registers
+# per lane of the query's warp
+MAX_KK = 128
 INIT_LOW = 0xFFFFFFFF            # index bits of an empty K2 slot (-1)
 # the 64-bit key of an empty K2 slot: (bits of f32 BIG, INIT_LOW)
 INIT_KEY = (0x7F61B1E6 << 32) | INIT_LOW
@@ -125,6 +129,18 @@ def _query_chunk(n_targets: int, device) -> int:
 # K2
 # ---------------------------------------------------------------------------
 
+def _check_kk(kk: int):
+    if not 1 <= kk <= MAX_KK:
+        raise ValueError(f"K2 keeps 1..{MAX_KK} candidates, got kk={kk}")
+
+
+def list_slots(kk: int) -> int:
+    """E, the registers per lane that hold a query's list in K2: 1, 2
+    or 4, the least of them with 32 E >= kk."""
+    _check_kk(kk)
+    return 1 if kk <= 32 else 2 if kk <= 64 else 4
+
+
 def _decode(key):
     """(val f32, idx int32) of int64 keys; INIT_LOW index bits give -1."""
     val = torch.bitwise_right_shift(key, 32).to(torch.int32).view(
@@ -145,7 +161,8 @@ def _pad_keys(key, kk: int):
 def knn_candidates_plain(query, target, pen, kk: int):
     """Plain PyTorch twin of K2: (val (N, kk) f32 ascending, idx (N, kk)
     int32), the kk smallest (distance, index) keys of each query; slots
-    past the M-th candidate hold (BIG, -1)."""
+    past the M-th candidate hold (BIG, -1).  1 <= kk <= MAX_KK."""
+    _check_kk(kk)
     n, m = query.shape[0], target.shape[0]
     dev = query.device
     cols = torch.arange(m, dtype=torch.int64, device=dev)
@@ -179,6 +196,7 @@ def knn_candidates_sliced_plain(query, target, pen, kk: int, nslices: int):
     """K2's split in plain torch: the twin's kk candidates of every query
     over each slice of ``knn_slices`` alone.  Returns (val, idx), each
     (nslices, N, kk), with indices into the whole target."""
+    _check_kk(kk)
     vals, idxs = [], []
     for sl in knn_slices(target.shape[0], nslices, query.device):
         v, i = knn_candidates_plain(query, target[sl].contiguous(),
@@ -196,6 +214,7 @@ def merge_candidate_keys(val, idx, kk: int):
     (N, kk), the kk smallest (distance, index) pairs of each query.  The
     pairs are unique per query, so the result does not depend on the
     order of the slices."""
+    _check_kk(kk)
     s, n, c = val.shape
     key = torch.bitwise_or(
         torch.bitwise_left_shift(val.view(torch.int32).to(torch.int64), 32),
@@ -230,20 +249,22 @@ def _launch_candidates(query, target, pen, kk):
     if rc != 0:
         raise RuntimeError(f"K2 knn kernel launch failed: cudaError {rc}")
     knn_candidates.launches += 1
+    by_kk = knn_candidates.launches_by_kk
+    by_kk[kk] = by_kk.get(kk, 0) + 1
     per_cta = QUERIES_PER_WARP * K2_WARPS // split
     knn_candidates.last_grid = {
         "ctas": -(-n // per_cta), "warps_per_cta": K2_WARPS,
         "queries_per_warp": QUERIES_PER_WARP, "queries_per_cta": per_cta,
-        "split": split}
+        "split": split, "list_slots": list_slots(kk)}
     return val, idx
 
 
 def knn_candidates(query, target, pen, kk: int):
     """K2's boundary: (val (N, kk) f32, idx (N, kk) int32) for f32
-    query (N, 3), target (M, 3) and pen (M,).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
-    if not 1 <= kk <= MAX_KK:
-        raise ValueError(f"K2 keeps 1..{MAX_KK} candidates, got kk={kk}")
+    query (N, 3), target (M, 3) and pen (M,), 1 <= kk <= MAX_KK.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    _check_kk(kk)
     _check_inputs(query, target, pen)
     if query.device.type == "cpu":
         return knn_candidates_plain(query, target, pen, kk)
@@ -251,6 +272,7 @@ def knn_candidates(query, target, pen, kk: int):
 
 
 knn_candidates.launches = 0
+knn_candidates.launches_by_kk = {}     # the same launches, per kk
 knn_candidates.last_grid = None
 
 

@@ -105,6 +105,21 @@ def psd_svd_from_eigh(w_asc, V):
     return torch.flip(torch.abs(w_asc), dims=(-1,)), torch.flip(V, dims=(-1,))
 
 
+def solve_qr_6x6(A, b):
+    """Dense solve of the 6x6 system A x = b, batched.  Every system the
+    engines solve this way is symmetric (GN Hessians, Tikhonov- or
+    LM-damped), so it is the spectral solve x = V diag(1/w) V^T b of the
+    JAX module, exact-arithmetic equal to the reference's
+    colPivHouseholderQr; a near-singular A gives a large solution, as QR
+    does."""
+    w, V = symmetric_eigh(A)
+    safe = torch.abs(w) > 1e-300
+    inv_w = torch.where(safe, 1.0 / torch.where(safe, w, torch.ones_like(w)),
+                        0.0)
+    y = inv_w * (V.transpose(-1, -2) @ b[..., None])[..., 0]
+    return (V @ y[..., None])[..., 0]
+
+
 def inv_3x3(A):
     """Closed-form 3x3 inverse (adjugate / det), batched.  Returns
     (inverse, det)."""

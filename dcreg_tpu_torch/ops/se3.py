@@ -2,7 +2,8 @@
 
 Plain tensor functions, batched over leading dimensions.  Conventions are
 the JAX module's: tangent ordering ``[omega(3), v(3)]``, ``boxplus`` is the
-right retraction ``(R exp(w), t + R v)``, Euler poses compose Z * Y * X.
+right retraction ``(R exp(w), t + R v)``, ``boxplus_left`` the left one
+``(exp(w) R, exp(w) t + v)``, Euler poses compose Z * Y * X.
 """
 from __future__ import annotations
 
@@ -84,6 +85,13 @@ def boxplus(R, t, delta):
     return R_new, t_new
 
 
+def boxplus_left(R, t, delta):
+    """Left retraction: (exp(w) R, exp(w) t + v)."""
+    omega, v = delta[..., :3], delta[..., 3:]
+    dR = exp_so3(omega)
+    return dR @ R, torch.einsum('...ij,...j->...i', dR, t) + v
+
+
 def orthonormalize(R):
     """Project a nearly-orthonormal matrix back onto SO(3) (Gram-Schmidt on
     rows).  A constant-velocity chain squares any scale/shear defect every
@@ -124,6 +132,24 @@ def pose_error(T_gt, T_est, degrees: bool = True):
     if degrees:
         ang = ang * (180.0 / math.pi)
     return trans_error, ang
+
+
+def euler_to_lie_jacobian(roll, pitch, yaw):
+    """Euler-rate -> angular-velocity covariance Jacobian, inverted in
+    closed form; the identity near gimbal lock (|cos pitch| < 1e-6)."""
+    from .linalg import inv_3x3
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    one, zero = torch.ones_like(roll), torch.zeros_like(roll)
+    J = torch.stack([
+        torch.stack([one, zero, sp], dim=-1),
+        torch.stack([zero, cr, -sr * cp], dim=-1),
+        torch.stack([zero, sr, cr * cp], dim=-1),
+    ], dim=-2)
+    Jinv, _ = inv_3x3(J)
+    gimbal = torch.abs(cp) < 1e-6
+    eye = torch.eye(3, dtype=J.dtype, device=J.device)
+    return torch.where(gimbal[..., None, None], eye, Jinv)
 
 
 def pose6d_to_matrix(pose):

@@ -143,7 +143,10 @@ def _fmt(v):
 
 
 def _synchronize(x):
-    """Wait for the card if tensor ``x`` lives there."""
+    """Wait for the card if ``x`` (a tensor, or a tuple that leads with
+    one, such as an engine's result) lives there."""
+    while isinstance(x, tuple):
+        x = x[0]
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
 
@@ -151,9 +154,10 @@ def _synchronize(x):
 def stepped_iteration_times(run_one_iteration, poses, reps: int = 3):
     """Wall-time each recorded iteration as its own call.
 
-    run_one_iteration: callable (R (3,3), t (3,)) -> tensor; poses: the
-    (R, t) at which each executed iteration ran.  Returns the per-iteration
-    ms, the minimum over ``reps`` timed calls after one untimed call."""
+    run_one_iteration: callable (R (3,3), t (3,)) -> tensor or engine
+    result; poses: the (R, t) at which each executed iteration ran.
+    Returns the per-iteration ms, the minimum over ``reps`` timed calls
+    after one untimed call."""
     times = []
     for R, t in poses:
         _synchronize(run_one_iteration(R, t))

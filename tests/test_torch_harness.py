@@ -1,8 +1,12 @@
 """Port parity for the whole slice: the method matrix of
-``configs/cylinder.yaml`` (its five SO(3) rows) through the port's
-``TestRunner`` against ``dcreg_tpu.harness.TestRunner`` on the same small
-synthetic cylinder, f64 on the CPU, plus the CLI, the config loader and
-the PCD reader/writer.
+``configs/cylinder.yaml`` (all seven rows: the SO(3) family, XICP and
+SuperLoc) through the port's ``TestRunner`` against
+``dcreg_tpu.harness.TestRunner`` on the same small synthetic cylinder,
+f64 on the CPU, on the CSR grid backend, plus the CLI, the config loader
+and the PCD reader/writer.  ``tests/test_torch_harness_matrix.py`` holds
+the parking-lot rows and the Euler family to the same checks, which live
+here as ``check_*`` functions;
+``tests/test_torch_harness_rows.py`` runs every row of every config.
 
 Stated tolerances: per-method statistics within rtol 1e-6 (times
 excepted); every artifact file with the same header line and the same
@@ -23,13 +27,13 @@ from dcreg_tpu.harness import TestRunner as JRunner
 from dcreg_tpu.io.pcd import load_pcd as j_load_pcd
 from dcreg_tpu.io.pcd import save_pcd as j_save_pcd
 from dcreg_tpu_torch import cli
-from dcreg_tpu_torch.config import load_config, select_methods
+from dcreg_tpu_torch.config import load_config
 from dcreg_tpu_torch.harness import TestRunner as TRunner
 from dcreg_tpu_torch.io.pcd import jet_color, load_pcd, save_pcd
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CYLINDER = os.path.join(ROOT, "configs", "cylinder.yaml")
-SO3_ROWS = ["ME-SR", "ME-TSVD", "ME-TReg", "FCN-SR", "Ours"]
+CYLINDER_ROWS = [m[0] for m in load_config(CYLINDER).test_methods]
 # columns (by header name) and pcg.txt fields that hold times
 TIME_COLUMNS = {"Time_ms", "IterTimeMs"}
 PCG_TIME_FIELDS = {5, 6}          # time_pcg_ms, time_qr_direct_ms
@@ -40,11 +44,14 @@ def runs(tmp_path_factory):
     pts = synthetic_cylinder(11, 1800).astype(np.float64)
     j_out = str(tmp_path_factory.mktemp("jax_out"))
     t_out = str(tmp_path_factory.mktemp("torch_out"))
-    jc = j_load_config(CYLINDER)
-    jc = jc._replace(output_folder=j_out, test_methods=tuple(
-        m for m in jc.test_methods if m[0] in SO3_ROWS))
-    tc = select_methods(load_config(CYLINDER), SO3_ROWS)._replace(
-        output_folder=t_out)
+    jc = j_load_config(CYLINDER)._replace(output_folder=j_out)
+    tc = load_config(CYLINDER)._replace(output_folder=t_out)
+    return run_both(jc, tc, pts, j_out, t_out)
+
+
+def run_both(jc, tc, pts, j_out, t_out):
+    """The JAX and the port's TestRunner over ``pts`` (source == target)
+    with configs ``jc`` and ``tc``, artifacts into ``j_out`` / ``t_out``."""
     jr = JRunner(jc)
     jr.load_point_clouds(pts, pts)
     jr.run_all()
@@ -69,28 +76,44 @@ def _close(a, b):
     return math.isclose(a, b, rel_tol=1e-6, abs_tol=1e-9)
 
 
-def test_statistics_match(runs):
-    jr, tr, _, _ = runs
-    assert set(tr.stats) == set(jr.stats) == set(SO3_ROWS)
-    for m in SO3_ROWS:
+def check_statistics(jr, tr, rows):
+    """Per-method statistics of ``rows`` (times excepted) and SuperLoc's
+    record fields within rtol 1e-6."""
+    assert set(tr.stats) == set(jr.stats) == set(rows)
+    for m in rows:
         for key, ref in jr.stats[m].items():
             if key.startswith("time"):
                 continue
             assert _close(tr.stats[m][key], ref), (m, key)
+    for rj, rt in zip(jr.records, tr.records):
+        assert rt.method == rj.method
+        sj, st = getattr(rj, "superloc", None), getattr(rt, "superloc", None)
+        assert (sj is None) == (st is None), rj.method
+        for key, ref in (sj or {}).items():
+            np.testing.assert_allclose(st[key], ref, rtol=1e-6,
+                                       err_msg=key)
+
+
+def test_statistics_match(runs):
+    jr, tr, _, _ = runs
+    check_statistics(jr, tr, CYLINDER_ROWS)
     # the scenario exercises the method matrix: DCReg converges and flags
     # a degenerate direction at iteration 0
     ours = next(r for r in tr.records if r.method == "Ours")
     assert ours.converged and bool(ours.result.log.degenerate_mask[0].any())
 
 
-@pytest.mark.parametrize("method", SO3_ROWS)
+@pytest.mark.parametrize("method", CYLINDER_ROWS)
 def test_engine_results_match(runs, method):
-    """``icp_point_to_plane_so3`` on the CSR grid backend, as each method
-    run of the two harnesses called it (each side built its own grid):
-    converged, aborted and iterations identical; R and t within 1e-8;
+    """Each row's engine on the CSR grid backend, as each method run of
+    the two harnesses called it (each side built its own grid)."""
+    check_engine_results(*runs[:2], method)
+
+
+def check_engine_results(jr, tr, method):
+    """converged, aborted and iterations identical; R and t within 1e-8;
     on executed rows the spectra within rtol 1e-6 and degenerate_mask
     identical."""
-    jr, tr, _, _ = runs
     rj = next(r for r in jr.records if r.method == method).result
     rt = next(r for r in tr.records if r.method == method).result
     for f in ("converged", "aborted", "iterations"):
@@ -116,10 +139,16 @@ def _artifacts(out):
 
 
 def test_artifacts_same_headers_and_rows(runs):
-    _, _, j_out, t_out = runs
+    names = check_artifacts(*runs[2:])
+    assert "pcg.txt" in names
+
+
+def check_artifacts(j_out, t_out):
+    """The same artifact files, each with the JAX one's header line and
+    number of lines; returns their names."""
     names = _artifacts(j_out)
     assert names == _artifacts(t_out)
-    assert "pcg.txt" in names and "all_results.csv" in names
+    assert "all_results.csv" in names
     for name in names:
         with open(os.path.join(j_out, name)) as f:
             ref = f.read().splitlines()
@@ -128,6 +157,7 @@ def test_artifacts_same_headers_and_rows(runs):
         assert len(ours) == len(ref), name
         if name != "pcg.txt":              # pcg.txt has no header line
             assert ours[0] == ref[0], name
+    return names
 
 
 @pytest.mark.parametrize("name", [
@@ -135,7 +165,10 @@ def test_artifacts_same_headers_and_rows(runs):
     "iteration_details_with_dx.csv", "transform_details.csv",
     "condition_numbers_detailed.csv", "iteration_timing_provenance.csv"])
 def test_csv_cells_match(runs, name):
-    _, _, j_out, t_out = runs
+    check_csv_cells(*runs[2:], name)
+
+
+def check_csv_cells(j_out, t_out, name):
     with open(os.path.join(j_out, name)) as f:
         ref = list(csv.DictReader(f))
     with open(os.path.join(t_out, name)) as f:
@@ -152,7 +185,14 @@ def test_csv_cells_match(runs, name):
 
 
 def test_pcg_and_text_artifacts_match(runs):
-    _, _, j_out, t_out = runs
+    check_text_artifacts(*runs[2:])
+
+
+def check_text_artifacts(j_out, t_out):
+    """pcg.txt (where a PCG row ran) and the two degeneracy analyses."""
+    if not os.path.isfile(os.path.join(j_out, "pcg.txt")):
+        assert not os.path.isfile(os.path.join(t_out, "pcg.txt"))
+        return check_degeneracy_text(j_out, t_out)
     with open(os.path.join(j_out, "pcg.txt")) as f:
         ref = [line.split() for line in f]
     with open(os.path.join(t_out, "pcg.txt")) as f:
@@ -163,6 +203,10 @@ def test_pcg_and_text_artifacts_match(runs):
         for i, (x, y) in enumerate(zip(a, b)):
             if i not in PCG_TIME_FIELDS:
                 assert _close(x, y), (i, x, y)
+    check_degeneracy_text(j_out, t_out)
+
+
+def check_degeneracy_text(j_out, t_out):
     for name in ("degeneracy_analysis_first_iter.txt",
                  "degeneracy_analysis_last_iter.txt"):
         with open(os.path.join(j_out, name)) as f:
@@ -195,20 +239,6 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     with pytest.raises(SystemExit):                      # f64 needs the CPU
         cli.main(["--config", CYLINDER, "--device", "cpu", "--f64",
                   "--f32", "--source", str(src)])
-
-
-def test_unported_engines_raise(tmp_path):
-    pts = synthetic_cylinder(13, 600)
-    cfg = load_config(CYLINDER)._replace(output_folder="")
-    runner = TRunner(cfg, device="cpu").load_point_clouds(pts, pts)
-    for name, det, hand in cfg.methods():
-        if name in ("XICP", "SuperLoc"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-                runner.run_method(name, det, hand)
-    euler = TRunner(cfg._replace(use_so3_parameterization=False),
-                    device="cpu").load_point_clouds(pts, pts)
-    with pytest.raises(NotImplementedError):
-        euler.run_method("Ours", *cfg.methods()[-1][1:])
 
 
 @pytest.mark.parametrize("name", sorted(

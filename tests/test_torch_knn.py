@@ -117,7 +117,7 @@ def test_k2_candidates_layout_and_empty_slots():
     d, _ = tkk.knn(T(q), T(t), k=6, kk=6)
     assert bool(torch.isinf(d[:, 4:]).all())
     with pytest.raises(ValueError, match="kk"):
-        tkk.knn_candidates(T(q), T(t), pen, 17)
+        tkk.knn_candidates(T(q), T(t), pen, 129)
     with pytest.raises(TypeError):
         tkk.knn_candidates(T(q).double(), T(t), pen, 5)
 
