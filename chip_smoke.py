@@ -45,7 +45,24 @@ sm_90a), then runs on the card:
      iteration 10 of any other); one Ours, XICP and O3D run each under
      the profiler;
   7. the ``kernels`` line: K1, K2 and K3 with their launches on each
-     path, times, bounds and library times.
+     path (K2's including (8b)), times, bounds and library times;
+  8. on phase 2's world, trajectory and scans: (8a) the voxel map index
+     (``build_voxel_grid`` over the whole map on the card) and the voxel
+     odometry loop ``run_odometry`` over the 128 frames from the pose
+     before frame 0, f32, voxel edge = search radius, the voxel capacity
+     from the largest occupancy around the trajectory; gated on every
+     frame converging, mean translation error < 5 cm, max < 10 cm and
+     every position within 3 cm of phase 2's; a profile window of 8
+     frames; (8b) ``voxel_knn`` against K2 (``knn``) for frame 0 at its
+     GT pose: for every query whose 5th distance is within the search
+     radius the same neighbours (but for exact ties) at distances
+     within 2 ulp; (8c) ``optimize_pose_graph`` on a 128-pose window of
+     the ground truth (noisy odometry edges, one exact closure) in f32
+     on the card, gated on the last pose's drift falling at least 2x, a
+     final cost < 1 and poses within 1 mm of the same graph in f64 on
+     the CPU; (8d) the ground truth and both loops' trajectories through
+     TUM files and back (within 1e-6), gated on ATE RMSE < 3 cm and
+     registration recall 1.
 
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
@@ -211,10 +228,15 @@ def trajectory(extent, frames):
     return gt[0], gt[1], np.asarray(gt[2:])
 
 
-def scans(world, gt, n, rng):
+def tube_mask(world, gt):
+    """The map points within 9 m of the trajectory's bounding box."""
     tube_lo = gt[:, :3, 3].min(axis=0) - 9.0
     tube_hi = gt[:, :3, 3].max(axis=0) + 9.0
-    tube = world[np.all((world >= tube_lo) & (world <= tube_hi), axis=1)]
+    return np.all((world >= tube_lo) & (world <= tube_hi), axis=1)
+
+
+def scans(world, gt, n, rng):
+    tube = world[tube_mask(world, gt)]
     out = []
     for T in gt:
         c = T[:3, 3]
@@ -784,6 +806,220 @@ def run_pair(seed: int, device: str = "cuda"):
 
 
 # --------------------------------------------------------------------------
+# Phase 8: the voxel-grid odometry loop, the pose graph and TUM scoring
+# --------------------------------------------------------------------------
+
+# the voxel loop's timed run falls back to its first 64 frames when the
+# warm-up predicts more than this many seconds for all of them
+VOXEL_TIMED_LIMIT_S = 120.0
+VOXEL_WARM_FRAMES = 4
+
+
+def voxel_capacity(tube, grid):
+    """(capacity, largest occupancy): the most points in one voxel of
+    ``grid`` among ``tube``'s points (the map around the trajectory),
+    counted on the host with the grid's own origin and scale in f32, plus
+    2% for points that f32 rounding puts across a voxel face, rounded up
+    to a multiple of 32."""
+    origin = grid.origin.cpu().numpy()
+    inv = grid.inv_size.cpu().numpy()
+    dims = grid.dims.cpu().numpy()
+    c = np.floor((tube.astype(np.float32) - origin) * inv).astype(np.int64)
+    ids = (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+    occ = int(np.unique(ids, return_counts=True)[1].max())
+    return -(-int(np.ceil(occ * 1.02)) // 32) * 32, occ
+
+
+def ulp_diff(a, b):
+    """|a - b| in units in the last place of non-negative f32 values."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def pose_graph_inputs(gt, seed):
+    """A window over ``gt``: odometry edges with seeded noise (0.01 rad,
+    0.02 m), one exact closure from the first pose to the last with
+    information x100, and the noisy chain integrated as the initial
+    guess (f64 numpy): (i, j, Z, info, init)."""
+    from dcreg_tpu_torch.ops import se3
+    W = gt.shape[0]
+    rng = np.random.default_rng(seed)
+    Z = np.linalg.inv(gt[:-1]) @ gt[1:]
+    rot = se3.exp_so3(torch.as_tensor(rng.normal(0.0, 0.01, (W - 1, 3))))
+    Z[:, :3, :3] = Z[:, :3, :3] @ rot.numpy()
+    Z[:, :3, 3] += rng.normal(0.0, 0.02, (W - 1, 3))
+    init = [gt[0]]
+    for k in range(W - 1):
+        init.append(init[-1] @ Z[k])
+    Z = np.concatenate([Z, (np.linalg.inv(gt[0]) @ gt[-1])[None]])
+    info = np.broadcast_to(np.eye(6), (W, 6, 6)).copy()
+    info[-1] *= 100.0
+    i = np.append(np.arange(W - 1), 0)
+    j = np.append(np.arange(1, W), W - 1)
+    return i, j, Z, info, np.asarray(init)
+
+
+def run_voxel(seed, ctx, device: str = "cuda"):
+    """Phase 8 on phase 2's world, trajectory and scans: (8a) the voxel
+    map index and ``run_odometry`` from T_pre1, (8b) ``voxel_knn`` held
+    against K2 on frame 0 at its GT pose, (8c) the pose graph of a
+    128-pose window in f32 on the card against f64 on the CPU, (8d) the
+    trajectories through TUM files and their scores.  Returns K2's
+    launches in (8b)."""
+    from dcreg_tpu_torch.io import tum
+    from dcreg_tpu_torch.models.odometry import OdometryParams, run_odometry
+    from dcreg_tpu_torch.models.pose_graph import (make_edges,
+                                                   optimize_pose_graph)
+    from dcreg_tpu_torch.ops import knn_kernels as kn
+    from dcreg_tpu_torch.ops.voxel_grid import build_voxel_grid, voxel_knn
+    world, gt, frames = ctx["world"], ctx["gt"], ctx["frames"]
+    radius = OdometryParams().corr.search_radius
+    t_start = time.perf_counter()
+    since = lambda: time.perf_counter() - t_start
+
+    # ---- 8a. the voxel odometry loop --------------------------------------
+    world_t = torch.as_tensor(world, device=device)
+    grid, build_s = wall(lambda: build_voxel_grid(world_t, radius,
+                                                  device=device))
+    tube_idx = np.nonzero(tube_mask(world, gt))[0]
+    cap, occ = voxel_capacity(world[tube_idx], grid)
+    params = OdometryParams(capacity=cap)
+
+    def odom(n):
+        return run_odometry(frames[:n], grid, T0=ctx["T_pre1"],
+                            params=params, device=device)
+
+    _, warm_s = wall(lambda: odom(VOXEL_WARM_FRAMES))
+    n_timed = FRAMES
+    if warm_s / VOXEL_WARM_FRAMES * FRAMES > VOXEL_TIMED_LIMIT_S:
+        n_timed = FRAMES // 2
+    res, dt = wall(lambda: odom(n_timed))
+    est = res.poses.double().cpu().numpy()
+    te = np.linalg.norm(est[:, :3, 3] - gt[:n_timed, :3, 3], axis=1)
+    vs_map = np.linalg.norm(est[:, :3, 3]
+                            - ctx["odom_poses"][:n_timed, :3, 3], axis=1)
+    row = {"phase": "voxel_odometry", "frames": n_timed,
+           "timed_frames_note": ("all frames" if n_timed == FRAMES else
+                                 f"first {n_timed} frames: the warm-up "
+                                 f"predicted over {VOXEL_TIMED_LIMIT_S} s "
+                                 "for all"),
+           "map_points": int(world.shape[0]), "grid_build_s": build_s,
+           "grid_dims": [int(d) for d in grid.dims],
+           "capacity": cap, "largest_occupancy": occ,
+           "warm_run_s": warm_s, "ms_per_frame": dt / n_timed * 1e3,
+           "iters_per_frame": float(res.iterations.float().mean()),
+           "converged_frac": float(res.converged.float().mean()),
+           "te_mean_m": float(te.mean()), "te_max_m": float(te.max()),
+           "max_dist_to_map_loop_m": float(vs_map.max()),
+           "phase8_s": since()}
+    emit(row)
+    if not (bool(res.converged.all()) and te.mean() < 0.05
+            and te.max() < 0.10 and vs_map.max() < 0.03):
+        raise RuntimeError(f"voxel odometry gates failed: {row}")
+    prof = profile_window("voxel_odometry_profile",
+                          lambda: odom(PROFILE_FRAMES))
+    prof_iters = int(res.iterations[:PROFILE_FRAMES].sum())
+    prof["icp_trips"] = prof_iters
+    prof["kernels_per_icp_trip"] = prof["kernel_launches"] / max(prof_iters,
+                                                                 1)
+    prof["phase8_s"] = since()
+    emit(prof)
+
+    # ---- 8b. voxel_knn held against K2 ------------------------------------
+    T = torch.as_tensor(gt[0], dtype=torch.float32, device=device)
+    q = torch.as_tensor(frames[0], device=device) @ T[:3, :3].T + T[:3, 3]
+    tube_t = world_t[torch.as_tensor(tube_idx, device=device)].contiguous()
+    dv, iv = voxel_knn(grid, q, k=5, capacity=cap, chunk=params.chunk)
+    kn.knn_candidates.launches = 0
+    dk, ik = kn.knn(q, tube_t, k=5)
+    k2_launches = kn.knn_candidates.launches
+    ik = torch.as_tensor(tube_idx, device=device)[ik]
+    sel = dv[:, 4] < radius ** 2
+    ulps = ulp_diff(dv[sel], dk[sel])
+    same_ids = torch.all(torch.sort(iv[sel], dim=1).values
+                         == torch.sort(ik[sel], dim=1).values, dim=1)
+    exact_d = torch.all(dv[sel] == dk[sel], dim=1)
+    bad = int((~same_ids & ~exact_d).sum())
+    row = {"phase": "voxel_knn_check", "queries": int(q.shape[0]),
+           "targets_k2": int(tube_t.shape[0]), "gated_queries": int(sel.sum()),
+           "max_ulp": int(ulps.max()) if ulps.numel() else 0,
+           "id_sets_differ": int((~same_ids).sum()),
+           "id_sets_differ_not_tied": bad, "k2_launches": k2_launches,
+           "voxel_knn_ms": time_ms(lambda: voxel_knn(
+               grid, q, k=5, capacity=cap, chunk=params.chunk), 5),
+           "k2_knn_ms": time_ms(lambda: kn.knn(q, tube_t, k=5), 5),
+           "phase8_s": since()}
+    emit(row)
+    if bad or row["max_ulp"] > 2 or row["gated_queries"] == 0 \
+            or (device != "cpu" and k2_launches <= 0):
+        raise RuntimeError(f"voxel_knn disagrees with K2: {row}")
+
+    # ---- 8c. the pose graph -------------------------------------------------
+    i, j, Z, info, init = pose_graph_inputs(gt, seed + 8)
+    dtype = torch.float32
+
+    def pg(dev, dt):
+        edges = make_edges(i, j, torch.as_tensor(Z, dtype=dt), info=info,
+                           device=dev)
+        return optimize_pose_graph(torch.as_tensor(init, dtype=dt), edges,
+                                   device=dev)
+
+    ref = pg("cpu", torch.float64)
+    ref_p = ref.poses.numpy()
+    wall(lambda: pg(device, dtype))
+    out, pg_s = wall(lambda: pg(device, dtype))
+    opt = out.poses.double().cpu().numpy()
+    drift0 = float(np.linalg.norm(init[-1, :3, 3] - gt[-1, :3, 3]))
+    drift1 = float(np.linalg.norm(opt[-1, :3, 3] - gt[-1, :3, 3]))
+    vs_ref = float(np.linalg.norm(opt[:, :3, 3] - ref_p[:, :3, 3],
+                                  axis=1).max())
+    row = {"phase": "pose_graph", "window": int(gt.shape[0]),
+           "edges": int(len(i)), "dtype": str(dtype).split(".")[-1],
+           "gn_iterations": out.iterations, "converged": out.converged,
+           "ms": pg_s * 1e3, "final_cost": float(out.final_cost),
+           "drift_before_m": drift0, "drift_after_m": drift1,
+           "max_dist_to_cpu_f64_m": vs_ref,
+           "cpu_f64_iterations": ref.iterations,
+           "cpu_f64_final_cost": float(ref.final_cost),
+           "phase8_s": since()}
+    emit(row)
+    if not (drift1 <= 0.5 * drift0 and row["final_cost"] < 1.0
+            and vs_ref < 1e-3):
+        raise RuntimeError(f"pose graph gates failed: {row}")
+
+    # ---- 8d. TUM files and trajectory scores ------------------------------
+    out_dir = tempfile.mkdtemp(prefix="dcreg_tum_")
+    try:
+        stamps = np.arange(n_timed) * 0.1
+        trajs = {"gt": gt[:n_timed], "map_loop": ctx["odom_poses"][:n_timed],
+                 "voxel_loop": est}
+        back = {}
+        for name, poses in trajs.items():
+            path = os.path.join(out_dir, f"{name}.tum")
+            tum.save_tum(path, stamps, poses)
+            ts, back[name] = tum.load_tum(path)
+            if not (np.allclose(ts, stamps) and np.abs(
+                    back[name] - poses).max() <= 1e-6):
+                raise RuntimeError(f"TUM round trip of {name} differs")
+        scores = {}
+        for name in ("map_loop", "voxel_loop"):
+            a = tum.ate(back[name], back["gt"])
+            rre, rte = tum.rpe(back[name], back["gt"], delta=1)
+            recall, _ = tum.registration_recall(back[name], back["gt"])
+            scores[name] = {"ate_rmse_m": a["rmse"], "ate_max_m": a["max"],
+                            "rpe_rot_mean_deg": float(rre.mean()),
+                            "rpe_trans_mean_m": float(rte.mean()),
+                            "recall": recall}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "tum_scores", "frames": n_timed, **scores,
+          "phase8_s": since()})
+    if not all(v["ate_rmse_m"] < 0.03 and v["recall"] == 1.0
+               for v in scores.values()):
+        raise RuntimeError(f"trajectory scores failed: {scores}")
+    return k2_launches
+
+
+# --------------------------------------------------------------------------
 
 def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch.models.icp import ICPParams
@@ -973,7 +1209,9 @@ def run(seed: int, device: str = "cuda"):
     if min(launches.values()) <= 0:
         raise RuntimeError(f"K1 not launched on every path: {launches}")
     a = rows["a_map_B1_slotted_nomask"]
-    return {
+    ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
+           "odom_poses": est.astype(np.float64)}
+    return ctx, {
         "name": "K1 block_knn_keys", "route": "cuda",
         "source": "dcreg_tpu_torch/csrc/block_knn.cu",
         "replaces": "dcreg_tpu/ops/pallas_block_knn.py:91",
@@ -1031,8 +1269,11 @@ def main():
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     build_kernels()
-    k1 = run(args.seed)
+    ctx, k1 = run(args.seed)
     k2, k3 = run_pair(args.seed)
+    k2_voxel = run_voxel(args.seed, ctx)
+    k2["launches"] += k2_voxel
+    k2["launches_by_path"]["voxel_knn_check"] = k2_voxel
     emit({"kernels": [k1, k2, k3]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 from .models.icp import ICPParams
+from .models.odometry import OdometryParams
+from .models.pose_graph import PoseGraphEdges
 from .ops.block_sparse import BlockIndex, MapIndex
 from .ops.correspondence import CorrespondenceParams
 from .ops.degeneracy import DegeneracyThresholds
-from .ops.voxel_grid import GridIndex
+from .ops.voxel_grid import GridIndex, VoxelGrid
 from .utils import resolve_device
 
 
@@ -66,6 +68,13 @@ def icp_params(d) -> ICPParams:
     return ICPParams(**d)
 
 
+def odometry_params(d) -> OdometryParams:
+    d = _as_dict(d)
+    d["corr"] = correspondence_params(d["corr"])
+    d["thresholds"] = degeneracy_thresholds(d["thresholds"])
+    return OdometryParams(**d)
+
+
 def grid_index_from_arrays(fields, device=None) -> GridIndex:
     """GridIndex from {points, order, start, origin, dims, voxel_size,
     cap}; the points keep their dtype."""
@@ -78,3 +87,27 @@ def grid_index_from_arrays(fields, device=None) -> GridIndex:
                      dims=tuple(int(d) for d in fields["dims"]),
                      voxel_size=float(fields["voxel_size"]),
                      cap=int(fields["cap"]))
+
+
+def voxel_grid_from_arrays(fields, device=None) -> VoxelGrid:
+    """VoxelGrid from {points, sorted_idx, voxel_of_sorted, origin,
+    inv_size, dims, valid}; ids become int64, the points keep their
+    dtype."""
+    dev = resolve_device(device)
+    put = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    return VoxelGrid(points=put(fields["points"]),
+                     sorted_idx=put(fields["sorted_idx"]).long(),
+                     voxel_of_sorted=put(fields["voxel_of_sorted"]).long(),
+                     origin=put(fields["origin"]),
+                     inv_size=put(fields["inv_size"]),
+                     dims=put(fields["dims"]).long(),
+                     valid=put(fields["valid"]).bool())
+
+
+def pose_graph_edges_from_arrays(fields, device=None) -> PoseGraphEdges:
+    """PoseGraphEdges from {i, j, Z, info, valid}; indices become int64."""
+    dev = resolve_device(device)
+    put = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    return PoseGraphEdges(i=put(fields["i"]).long(), j=put(fields["j"]).long(),
+                          Z=put(fields["Z"]), info=put(fields["info"]),
+                          valid=put(fields["valid"]).bool())

@@ -1,11 +1,15 @@
-"""Scan-to-map localization loop (counterpart of the map-scale half of
-``dcreg_tpu/models/odometry.py``; the voxel-grid ``run_odometry`` is not
-ported yet).
+"""Scan-to-map odometry (counterpart of ``dcreg_tpu/models/odometry.py``).
 
-Per frame: a constant-velocity motion-model seed (projected back onto
-SO(3) every frame) and one B = 1 map-mode DCReg registration with a
-single reused pair list.  The JAX ``lax.scan`` over frames is a Python
-loop here.
+Two loops share the frame chain, a constant-velocity motion-model seed
+projected back onto SO(3) every frame; the JAX ``lax.scan`` over frames
+is a Python loop here:
+
+  * ``run_odometry``, the voxel-grid loop: the map indexed once by
+    ``build_voxel_grid``, and per frame a fixed-trip masked DCReg ICP
+    whose search is ``voxel_knn``; any float dtype;
+  * ``run_odometry_map``, the map-scale localization loop: one B = 1
+    map-mode DCReg registration with a single reused pair list per frame
+    (``icp_batch_so3``), float32.
 """
 from __future__ import annotations
 
@@ -16,10 +20,188 @@ import torch
 
 from ..ops import se3
 from ..ops.block_sparse import kd_block_order
-from ..ops.degeneracy import DetectionMethod, HandlingMethod, analyze
+from ..ops.correspondence import CorrespondenceParams, fit_planes
+from ..ops.degeneracy import (DegeneracyThresholds, DetectionMethod,
+                              HandlingMethod, analyze)
+from ..ops.solvers import solve
+from ..ops.voxel_grid import VoxelGrid, build_voxel_grid, voxel_knn
 from ..utils import check_precise, resolve_device
 from .icp import ICPParams
 from .icp_batch import estimate_map_capacities, icp_batch_so3
+
+
+class OdometryParams(NamedTuple):
+    icp_iterations: int = 8          # fixed-trip masked GN iterations
+    convergence_thresh_trans: float = 1e-3
+    convergence_thresh_rot: float = 1e-4
+    min_effective_points: int = 10
+    corr: CorrespondenceParams = CorrespondenceParams()
+    thresholds: DegeneracyThresholds = DegeneracyThresholds()
+    capacity: int = 32               # candidates drawn per neighbour voxel
+    chunk: int = 1024                # queries per voxel_knn chunk
+    use_constant_velocity: bool = True
+    use_weight_derivative: bool = True
+
+
+class OdometryResult(NamedTuple):
+    poses: torch.Tensor             # (F, 4, 4) world_T_body per frame
+    iterations: torch.Tensor        # (F,) active ICP trips
+    converged: torch.Tensor         # (F,) bool: stopped within the trips
+    #                                 (converged, too few points, or a
+    #                                 step that is not finite)
+    rmse: torch.Tensor              # (F,)
+    fitness: torch.Tensor           # (F,)
+    effective_points: torch.Tensor  # (F,)
+    is_degenerate: torch.Tensor     # (F,) bool
+    degenerate_mask: torch.Tensor   # (F, 6) bool
+    cond_schur_rot: torch.Tensor    # (F,)
+    cond_schur_trans: torch.Tensor  # (F,)
+    cond_full: torch.Tensor         # (F,)
+
+
+def _seed(R_prev, t_prev, R_prev2, t_prev2, constant_velocity: bool):
+    """A frame's initial pose: T_prev (T_prev2^-1 T_prev) under the
+    constant-velocity model, else T_prev.  The composition squares
+    rounding-level non-orthonormality, so the rotation is projected back
+    onto SO(3)."""
+    if not constant_velocity:
+        return R_prev, t_prev
+    dR = R_prev2.T @ R_prev
+    dt = R_prev2.T @ (t_prev - t_prev2)
+    return se3.orthonormalize(R_prev @ dR), R_prev @ dt + t_prev
+
+
+def _map_system(scan, scan_valid, grid: VoxelGrid, R, t,
+                params: OdometryParams):
+    """The point-to-plane GN system of ``scan`` at pose (R, t) against the
+    indexed map: (H, g, n_valid, rmse, fitness)."""
+    cp = params.corr
+    k = cp.k
+    p_w = scan @ R.T + t
+    sq_d, idx = voxel_knn(grid, p_w, k=k, capacity=params.capacity,
+                          chunk=params.chunk)
+    in_radius = sq_d[:, k - 1] < cp.search_radius ** 2
+    neigh = grid.points[idx]
+    normal, d_off, fit_ok = fit_planes(neigh)
+    plane_dist = torch.einsum("nkj,nj->nk", neigh, normal) + d_off[:, None]
+    plane_ok = torch.amax(plane_dist * plane_dist, dim=-1) \
+        < cp.max_plane_thickness ** 2
+    residual = torch.einsum("nj,nj->n", p_w, normal) + d_off
+    s = torch.clamp(1.0 - cp.weight_slope * torch.abs(residual), min=0.0)
+    valid = (in_radius & fit_ok & plane_ok & (s > cp.min_weight)
+             & scan_valid)
+    s = torch.where(valid, s, 0.0)
+    if params.use_weight_derivative:
+        # d(s r)/dr = s + r ds/dr on the ramp 0 < s < 1
+        on_ramp = (s > 0.0) & (s < 1.0)
+        ds_dr = torch.where(on_ramp, -cp.weight_slope * torch.sign(residual),
+                            0.0)
+        row_scale = torch.where(valid, s + residual * ds_dr, 0.0)
+    else:
+        row_scale = s
+    nR = normal @ R
+    Jw = torch.linalg.cross(scan, nR, dim=-1)
+    J = torch.cat([Jw, nR], dim=-1) * row_scale[:, None]
+    b = -(s * residual)
+    H = J.T @ J
+    g = J.T @ b
+    n_valid = torch.sum(valid.to(torch.int32))
+    raw_sq = torch.where(valid, residual * residual, 0.0)
+    rmse = torch.sqrt(torch.sum(raw_sq) / torch.clamp(n_valid, min=1))
+    n_src = torch.clamp(torch.sum(scan_valid.to(torch.int32)), min=1)
+    fitness = torch.sum(in_radius.to(scan.dtype)) / n_src
+    return H, g, n_valid, rmse, fitness
+
+
+def _register_to_map(scan, scan_valid, grid: VoxelGrid, R, t, detection,
+                     handling, params: OdometryParams):
+    """Masked DCReg ICP of one scan against the indexed map, with the
+    fixed-trip loop's results.  A trip after the frame stopped changes no
+    pose and repeats the evaluation at the final pose, so the loop ends
+    after one such trip; the telemetry is the last trip's."""
+    thr = params.thresholds
+    n_done, active = 0, True
+    H, g, n_valid, rmse, fitness = _map_system(scan, scan_valid, grid, R, t,
+                                               params)
+    ana = analyze(H, detection, thr)
+    for trip in range(params.icp_iterations):
+        if trip:
+            H, g, n_valid, rmse, fitness = _map_system(
+                scan, scan_valid, grid, R, t, params)
+            ana = analyze(H, detection, thr)
+            if not active:
+                break
+        dx, _ = solve(H, g, handling, ana, thr, telemetry=False)
+        ok = (n_valid >= params.min_effective_points) \
+            & torch.all(torch.isfinite(dx))
+        dx = torch.where(ok, dx, torch.zeros_like(dx))
+        R, t = se3.boxplus(R, t, dx)
+        conv = (torch.linalg.norm(dx[:3]) < params.convergence_thresh_rot) \
+            & (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans)
+        n_done += 1
+        active = bool(ok & ~conv)
+    return R, t, not active, n_done, rmse, fitness, n_valid, ana
+
+
+def _odometry_impl(frames, frames_valid, grid: VoxelGrid, T0, detection,
+                   handling, params: OdometryParams) -> OdometryResult:
+    R_prev, t_prev = T0[:3, :3], T0[:3, 3]
+    R_prev2, t_prev2 = R_prev, t_prev
+    outs = []
+    for f in range(frames.shape[0]):
+        R_pred, t_pred = _seed(R_prev, t_prev, R_prev2, t_prev2,
+                               params.use_constant_velocity)
+        R, t, conv, iters, rmse, fitness, n_valid, ana = _register_to_map(
+            frames[f], frames_valid[f], grid, R_pred, t_pred, detection,
+            handling, params)
+        outs.append((se3.se3_matrix(R, t), iters, conv, rmse, fitness,
+                     n_valid, ana.is_degenerate, ana.degenerate_mask,
+                     ana.cond_schur_rot, ana.cond_schur_trans,
+                     ana.cond_full))
+        R_prev2, t_prev2, R_prev, t_prev = R_prev, t_prev, R, t
+    dev = frames.device
+    cols = [torch.stack(c) if torch.is_tensor(c[0])
+            else torch.tensor(c, device=dev) for c in zip(*outs)]
+    return OdometryResult(*cols)
+
+
+def run_odometry(frames, map_xyz, T0=None,
+                 detection="SCHUR_CONDITION_NUMBER",
+                 handling="PRECONDITIONED_CG",
+                 params: OdometryParams = OdometryParams(),
+                 frames_valid=None, map_valid=None, voxel_size=None,
+                 device=None) -> OdometryResult:
+    """Register a stream of body-frame scans (F, N, 3) against a prior
+    map, frame by frame, seeded by the constant-velocity model from T0.
+
+    ``map_xyz`` is the map (M, 3), indexed here at ``voxel_size``
+    (default the search radius), or a ``VoxelGrid`` already built over
+    it.  detection / handling take the enums or their names.  Runs in
+    the frames' dtype on ``device`` (cuda unless told otherwise) and
+    returns stacked per-frame telemetry."""
+    check_precise()
+    dev = resolve_device(device)
+    if isinstance(detection, str):
+        detection = DetectionMethod[detection]
+    if isinstance(handling, str):
+        handling = HandlingMethod[handling]
+    frames = torch.as_tensor(frames, device=dev)
+    dtype = frames.dtype
+    T0 = torch.eye(4, dtype=dtype, device=dev) if T0 is None \
+        else torch.as_tensor(T0, dtype=dtype, device=dev)
+    frames_valid = (torch.ones(frames.shape[:2], dtype=torch.bool,
+                               device=dev) if frames_valid is None
+                    else torch.as_tensor(frames_valid, device=dev).bool())
+    if isinstance(map_xyz, VoxelGrid):
+        grid = map_xyz
+    else:
+        if voxel_size is None:
+            voxel_size = params.corr.search_radius
+        grid = build_voxel_grid(torch.as_tensor(map_xyz, dtype=dtype,
+                                                device=dev),
+                                voxel_size, valid=map_valid, device=dev)
+    return _odometry_impl(frames, frames_valid, grid, T0, detection,
+                          handling, params)
 
 
 class MapOdometryResult(NamedTuple):
@@ -49,15 +231,8 @@ def _odometry_map_impl(frames, map_xyz, mindex, T0, T_prev, detection,
                and detection is DetectionMethod.SCHUR_CONDITION_NUMBER)
     outs = []
     for f in range(frames.shape[0]):
-        if use_constant_velocity:
-            # T_pred = T_prev (T_prev2^-1 T_prev); the composition squares
-            # rounding-level non-orthonormality, so project onto SO(3)
-            dR = R_prev2.T @ R_prev
-            dt = R_prev2.T @ (t_prev - t_prev2)
-            R_pred = se3.orthonormalize(R_prev @ dR)
-            t_pred = R_prev @ dt + t_prev
-        else:
-            R_pred, t_pred = R_prev, t_prev
+        R_pred, t_pred = _seed(R_prev, t_prev, R_prev2, t_prev2,
+                               use_constant_velocity)
         out = icp_batch_so3(frames[f], map_xyz, R_pred[None], t_pred[None],
                             detection, handling, params, mindex, num_pairs,
                             num_supers=num_supers,

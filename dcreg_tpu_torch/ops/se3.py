@@ -22,12 +22,18 @@ def skew(v):
     ], dim=-2)
 
 
+def _safe_theta(theta2):
+    """(small, theta, theta2 with the small entries set to 1): the sqrt
+    never sees 0."""
+    small = theta2 < 1e-10
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    return small, torch.sqrt(theta2_safe), theta2_safe
+
+
 def exp_so3(omega):
     """Exponential map so(3) -> SO(3), Rodrigues."""
     theta2 = torch.sum(omega * omega, dim=-1)
-    small = theta2 < 1e-10
-    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
-    theta = torch.sqrt(theta2_safe)
+    small, theta, theta2_safe = _safe_theta(theta2)
     K = skew(omega)
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0,
@@ -63,6 +69,50 @@ def log_so3(R):
     az = torch.where(s13 < 0, -axis[..., 2], axis[..., 2])
     w_pi = torch.stack([ax, ay, az], dim=-1) * theta[..., None]
     return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def right_jacobian_so3(omega):
+    """Right Jacobian of SO(3):
+    J_r = I - (1 - cos t) / t^2 K + (t - sin t) / t^3 K^2, K = skew(omega),
+    with Taylor terms below t^2 = 1e-10."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    small, theta, t2 = _safe_theta(theta2)
+    K = skew(omega)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (t2 * theta))
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    return eye - b[..., None, None] * K + c[..., None, None] * (K @ K)
+
+
+def right_jacobian_inv_so3(omega):
+    """Inverse right Jacobian of SO(3):
+    I + K / 2 + (1 / t^2 - cos(t/2) / (2 t sin(t/2))) K^2."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    small, theta, t2 = _safe_theta(theta2)
+    K = skew(omega)
+    half = 0.5 * theta
+    cot = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        1.0 / t2 - 0.5 * torch.cos(half) / (
+            theta * torch.sin(torch.where(small, 0.5, half))))
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    return eye + 0.5 * K + cot[..., None, None] * (K @ K)
+
+
+def point_to_plane_jacobian(point_body, normal, R):
+    """Point-to-plane Jacobian rows [-n^T R [p]x, n^T R] for the right
+    perturbation: point_body, normal (..., 3), R (..., 3, 3) -> (..., 6)."""
+    nR = torch.einsum('...i,...ij->...j', normal, R)
+    Jw = -torch.einsum('...j,...jk->...k', nR, skew(point_body))
+    return torch.cat([Jw, nR], dim=-1)
+
+
+def adjoint(R, t):
+    """Adjoint Ad(T) = [[R, [t]x R], [0, R]], (..., 6, 6)."""
+    top = torch.cat([R, skew(t) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def se3_matrix(R, t):
@@ -202,3 +252,16 @@ def matrix_to_pose6d(T):
     roll, pitch, yaw = rot_to_euler_zyx(T[..., :3, :3])
     return torch.stack([roll, pitch, yaw,
                         T[..., 0, 3], T[..., 1, 3], T[..., 2, 3]], dim=-1)
+
+
+def quat_to_rot(q):
+    """Quaternion (..., 4) as (w, x, y, z) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)

@@ -1,29 +1,132 @@
-"""CSR voxel-grid index for exact gated k-NN (counterpart of the
-``GridIndex`` half of ``dcreg_tpu/ops/voxel_grid.py``).
+"""Voxel-grid spatial indexes (counterpart of
+``dcreg_tpu/ops/voxel_grid.py``).
 
-Built once per target cloud on the host in numpy: points sorted by cell,
-CSR start offsets per cell, static grid dims and ``cap``, the exact
-maximum occupancy of any 27-cell neighbourhood.  A query walks its
+``VoxelGrid`` / ``voxel_knn``: the voxel odometry's map index, built on
+the device: a voxel id per point (invalid points past every real voxel),
+a stable sort by id, and per query the ``capacity`` first slots of each
+voxel of its 27-neighbourhood, found by binary search on the sorted ids;
+the k smallest of those 27 * capacity candidates are the answer.
+
+``GridIndex`` / ``grid_knn``: the pair engines' CSR index, built once per
+target cloud on the host in numpy: points sorted by cell, CSR start
+offsets per cell, static grid dims and ``cap``, the exact maximum
+occupancy of any 27-cell neighbourhood.  A query walks its
 neighbourhood's buckets through the cumulative counts, so it evaluates
-at most ``cap`` candidates and never drops one.  With voxel_size >= the
-search radius the neighbourhood covers the whole search ball, so gated
-results equal brute force.  (``VoxelGrid``/``voxel_knn`` belong to the
-voxel odometry and are not ported yet.)
+at most ``cap`` candidates and never drops one.
+
+With voxel_size >= the search radius the neighbourhood covers the whole
+search ball, so gated results equal brute force (for ``voxel_knn`` when
+no voxel holds more than ``capacity`` points).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils import resolve_device
-from .knn_kernels import _extract_k_smallest
+from .knn_kernels import _exact_sq, _extract_k_smallest
 
 # offsets of the 27-neighbourhood, (27, 3), in the JAX module's order
 _NEIGHBORHOOD = np.stack(np.meshgrid(np.arange(-1, 2), np.arange(-1, 2),
                                      np.arange(-1, 2), indexing="ij"),
                          axis=-1).reshape(27, 3)
+
+
+class VoxelGrid(NamedTuple):
+    """Voxel index over a fixed point set; ids are int64."""
+    points: torch.Tensor           # (M, 3) indexed points, original order
+    sorted_idx: torch.Tensor       # (M,) point indices sorted by voxel id
+    voxel_of_sorted: torch.Tensor  # (M,) voxel id of each sorted point
+    origin: torch.Tensor           # (3,) valid points' min corner - edge/2
+    inv_size: torch.Tensor         # () 1 / voxel edge
+    dims: torch.Tensor             # (3,) grid dimensions
+    valid: torch.Tensor            # (M,) bool
+
+
+def _voxel_id(coords, dims):
+    """Linear id (ix * ny + iy) * nz + iz of coordinates clipped into the
+    grid."""
+    c = torch.minimum(torch.clamp(coords, min=0), dims - 1)
+    return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
+
+
+def build_voxel_grid(points, voxel_size: float, valid=None,
+                     device=None) -> VoxelGrid:
+    """Index ``points`` (M, 3) into voxels of edge ``voxel_size`` on
+    ``device`` (cuda unless told otherwise); the points keep their
+    dtype.  For exact gated k-NN pick voxel_size >= the search radius."""
+    dev = resolve_device(device)
+    points = torch.as_tensor(points, device=dev)
+    M = points.shape[0]
+    valid = (torch.ones(M, dtype=torch.bool, device=dev) if valid is None
+             else torch.as_tensor(valid, device=dev).bool())
+    big = 3.4e38
+    lo = torch.amin(torch.where(valid[:, None], points, big), dim=0)
+    hi = torch.amax(torch.where(valid[:, None], points, -big), dim=0)
+    origin = lo - voxel_size * 0.5
+    inv = 1.0 / voxel_size
+    dims = torch.clamp(torch.ceil((hi - origin) * inv).long() + 1, min=1)
+    coords = torch.floor((points - origin) * inv).long()
+    # invalid points go to a sentinel id past every real voxel
+    sentinel = dims[0] * dims[1] * dims[2] + 1
+    vid = torch.where(valid, _voxel_id(coords, dims), sentinel)
+    order = torch.argsort(vid, stable=True)
+    return VoxelGrid(points=points, sorted_idx=order,
+                     voxel_of_sorted=vid[order], origin=origin,
+                     inv_size=torch.tensor(inv, dtype=points.dtype,
+                                           device=dev),
+                     dims=dims, valid=valid)
+
+
+def _k_smallest_by_slot(d, cand, k: int):
+    """The k smallest distances of each row (..., C), ascending, equal
+    distances in slot order (``lax.top_k``'s order), and their ids.  f32
+    ranks an exact int64 key (distance bits, slot); f64 sorts stably."""
+    if d.dtype == torch.float32:
+        slot = torch.arange(d.shape[-1], device=d.device)
+        key = (d.view(torch.int32).long() << 32) | slot
+        key = torch.topk(key, k, dim=-1, largest=False).values
+        sel = key & 0xFFFFFFFF
+        vals = (key >> 32).to(torch.int32).view(torch.float32)
+    else:
+        vals, sel = torch.sort(d, dim=-1, stable=True)
+        vals, sel = vals[..., :k], sel[..., :k]
+    return vals, torch.gather(cand, -1, sel)
+
+
+def voxel_knn(grid: VoxelGrid, query, k: int = 5, capacity: int = 32,
+              chunk: int = 1024):
+    """k nearest neighbours of each query (N, 3) among the first
+    ``capacity`` points of each voxel of its 27-neighbourhood, ``chunk``
+    queries at a time.  Returns (sq_dists (N, k) ascending, indices
+    (N, k) int64 into ``grid.points``); a missing neighbour carries +inf
+    and index 0."""
+    dev = query.device
+    offsets = torch.as_tensor(_NEIGHBORHOOD, device=dev)
+    slot = torch.arange(capacity, device=dev)
+    last = grid.sorted_idx.shape[0] - 1
+    d_out, i_out = [], []
+    for c0 in range(0, query.shape[0], chunk):
+        q = query[c0:c0 + chunk]
+        coords = torch.floor((q - grid.origin) * grid.inv_size).long()
+        neigh = coords[:, None, :] + offsets                  # (C, 27, 3)
+        in_grid = torch.all((neigh >= 0) & (neigh < grid.dims), dim=-1)
+        vids = _voxel_id(neigh, grid.dims)                    # (C, 27)
+        starts = torch.searchsorted(grid.voxel_of_sorted, vids)
+        ends = torch.searchsorted(grid.voxel_of_sorted, vids, right=True)
+        counts = torch.where(in_grid, ends - starts, 0)
+        cand_ok = slot < torch.clamp(counts, max=capacity)[..., None]
+        pos = torch.clamp(starts[..., None] + slot, 0, last)  # (C, 27, cap)
+        cand = grid.sorted_idx[pos].reshape(q.shape[0], -1)
+        d = _exact_sq(grid.points[cand], q)
+        d = torch.where(cand_ok.reshape(d.shape), d, float("inf"))
+        d, i = _k_smallest_by_slot(d, cand, k)
+        d_out.append(d)
+        i_out.append(torch.where(torch.isfinite(d), i, 0))
+    return torch.cat(d_out), torch.cat(i_out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -215,3 +215,40 @@ def test_test_runner_dtype_follows_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     runner = TestRunner(cfg)
     assert (runner.device.type, runner.dtype) == ("cuda", torch.float32)
+
+
+def test_voxel_odometry_entry_points_raise_without_gpu(monkeypatch):
+    """The voxel index, the voxel odometry loop and the pose graph need a
+    card unless told device='cpu'."""
+    from dcreg_tpu_torch.models import pose_graph as tpg
+    from dcreg_tpu_torch.ops import voxel_grid as tvg
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(2).uniform(-3, 3, (400, 3))
+    poses = np.broadcast_to(np.eye(4), (3, 4, 4)).copy()
+    poses[:, 0, 3] = [0.0, 1.0, 2.0]
+    Z = np.linalg.inv(poses[:-1]) @ poses[1:]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tvg.build_voxel_grid(pts, 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        todo.run_odometry(pts[None], pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpg.make_edges([0, 1], [1, 2], Z)
+    edges = tpg.make_edges([0, 1], [1, 2], Z, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpg.optimize_pose_graph(poses, edges)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        tpg.optimize_pose_graph(poses, edges, device="cuda")
+    # explicit CPU runs
+    assert tvg.build_voxel_grid(pts, 1.0, device="cpu").points.device.type \
+        == "cpu"
+    out = todo.run_odometry(pts[None], pts,
+                            params=todo.OdometryParams(icp_iterations=1),
+                            device="cpu")
+    assert out.poses.device.type == "cpu"
+    res = tpg.optimize_pose_graph(poses, edges, max_gn_iters=1, device="cpu")
+    assert res.poses.device.type == "cpu"
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        todo.run_odometry(pts[None], pts, device="cpu")
+    with pytest.raises(RuntimeError, match="TF32"):
+        tpg.optimize_pose_graph(poses, edges, device="cpu")
