@@ -45,7 +45,8 @@ sm_90a), then runs on the card:
      iteration 10 of any other); one Ours, XICP and O3D run each under
      the profiler;
   7. the ``kernels`` line: K1, K2 and K3 with their launches on each
-     path (K2's including (8b)), times, bounds and library times;
+     path (K2's including (8b) and (9c)), times, bounds and library
+     times;
   8. on phase 2's world, trajectory and scans: (8a) the voxel map index
      (``build_voxel_grid`` over the whole map on the card) and the voxel
      odometry loop ``run_odometry`` over the 128 frames from the pose
@@ -62,7 +63,28 @@ sm_90a), then runs on the card:
      final cost < 1 and poses within 1 mm of the same graph in f64 on
      the CPU; (8d) the ground truth and both loops' trajectories through
      TUM files and back (within 1e-6), gated on ATE RMSE < 3 cm and
-     registration recall 1.
+     registration recall 1;
+  9. the scale-out and the native runtime: (9a) ``sharded_icp_register``
+     in a one-rank NCCL world, mesh 1 x 1, on 16 of phase 2's scans
+     seeded as phase 2 seeds them, against the whole map in its kd-leaf
+     order (128-point blocks), with the two-level and the flat cull,
+     caps 1.5x the largest relevance counts; gated on zero overflow,
+     every frame converged, translation error mean < 5 cm, max < 10 cm
+     and every position within 3 cm of phase 2's; ms per registration,
+     iterations, kernels per ICP iteration from a 2-frame profile, peak
+     device memory; (9b) four rank processes of this script, on the one
+     card over gloo (NCCL takes one rank per GPU; on a machine with four
+     cards, one rank per card over NCCL): a 2 x 2 mesh, dense
+     (4,096 map points, 512 scan points) and culled (the map within 30 m
+     of frame 0, frame 0's scan), the host mesh with LOCAL_WORLD_SIZE=2
+     and ``assemble_sharded`` of phase 8c's window over data = 2; gated
+     on bit-equal ranks, host rows [[0, 0], [1, 1]], poses within 1e-4 m
+     and 1e-3 deg of the 1 x 1 mesh with equal iterations, and H, g and
+     the cost within 1e-5 relative of the unsharded assembly; (9c) the
+     native runtime: its g++ build, a PCD written and read back byte for
+     byte, the KD-tree over phase 8b's tube as K2's exact oracle (equal
+     ids but at ties, within 1 ulp) and voxel downsampling against a
+     numpy centroid per voxel (hash merges counted).
 
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
@@ -1020,6 +1042,472 @@ def run_voxel(seed, ctx, device: str = "cuda"):
 
 
 # --------------------------------------------------------------------------
+# Phase 9: sharded registration, the sharded pose-graph assembly and the
+# native host runtime
+# --------------------------------------------------------------------------
+
+SHARD_FRAMES = 16
+SHARD_PROFILE_FRAMES = 2
+# phase 2's kd leaves are 128-point blocks: the map serves unsorted
+SHARD_BLOCK = 128
+SHARD_SUPER = 64
+SHARD_CAP_MARGIN = 1.5
+RANK_TIMEOUT_S = 600
+
+
+def cull_counts(p_w, tgt_xyz, tgt_valid, shards=1):
+    """The most target blocks (of SHARD_BLOCK points) and supers (of
+    SHARD_SUPER blocks) whose boxes lie within the search radius of one
+    128-point query block, over the query blocks of ``p_w`` split into
+    ``shards`` equal row ranges, as ``sharded_icp_register``'s cull
+    counts them: the caps its ``num_blocks`` and ``num_supers`` must
+    hold."""
+    from dcreg_tpu_torch.models.icp import ICPParams
+    from dcreg_tpu_torch.parallel.sharded import _QBS, _bbox_gap_sq
+    r2 = ICPParams().corr.search_radius ** 2
+    blocks = tgt_xyz.reshape(-1, SHARD_BLOCK, 3)
+    bval = tgt_valid.reshape(-1, SHARD_BLOCK, 1)
+    blo = torch.amin(torch.where(bval, blocks, float("inf")), dim=1)
+    bhi = torch.amax(torch.where(bval, blocks, float("-inf")), dim=1)
+    ns = -(-blo.shape[0] // SHARD_SUPER)
+    pad = ns * SHARD_SUPER - blo.shape[0]
+    fill = lambda v: torch.full((pad, 3), v, device=blo.device)
+    slo = torch.amin(torch.cat([blo, fill(float("inf"))]).reshape(
+        ns, SHARD_SUPER, 3), dim=1)
+    shi = torch.amax(torch.cat([bhi, fill(float("-inf"))]).reshape(
+        ns, SHARD_SUPER, 3), dim=1)
+    qblocks = [q for part in p_w.chunk(shards) for q in part.split(_QBS)]
+    qlo = torch.stack([q.amin(dim=0) for q in qblocks])[:, None]
+    qhi = torch.stack([q.amax(dim=0) for q in qblocks])[:, None]
+    most = lambda lo, hi: int(torch.sum(_bbox_gap_sq(qlo, qhi, lo, hi)
+                                        <= r2, dim=1).max())
+    return most(blo, bhi), most(slo, shi)
+
+
+def cull_caps(counts):
+    """(num_blocks, num_supers) with SHARD_CAP_MARGIN over the largest
+    counts; the supers' blocks always cover num_blocks."""
+    G = int(np.ceil(max(c[0] for c in counts) * SHARD_CAP_MARGIN))
+    GS = int(np.ceil(max(c[1] for c in counts) * SHARD_CAP_MARGIN)) + 2
+    return G, max(GS, -(-G // SHARD_SUPER))
+
+
+def const_velocity_seeds(T_pre2, T_pre1, poses):
+    """Phase 2's seed of each frame (the loop's constant-velocity model)
+    from the poses estimated before it, in f64."""
+    from dcreg_tpu_torch.models.odometry import _seed
+    from dcreg_tpu_torch.ops import se3
+    prev = [torch.as_tensor(T, dtype=torch.float64)
+            for T in (T_pre2, T_pre1, *poses)]
+    return np.stack([se3.se3_matrix(*_seed(
+        b[:3, :3], b[:3, 3], a[:3, :3], a[:3, 3], True)).numpy()
+        for a, b in zip(prev, prev[1:len(poses) + 1])])
+
+
+def sharded_case(mesh, inp, name):
+    """``sharded_icp_register`` of phase 9b's case ``name`` on ``mesh``
+    (every rank passes the same global arrays)."""
+    from dcreg_tpu_torch.models.icp import ICPParams
+    from dcreg_tpu_torch.ops.degeneracy import (DetectionMethod,
+                                                HandlingMethod)
+    from dcreg_tpu_torch.parallel import shard_points, sharded_icp_register
+    dev = mesh.device
+    src, src_v = shard_points(torch.as_tensor(inp[f"{name}.scan"],
+                                              device=dev),
+                              mesh.shape["data"])
+    tgt, tgt_v = shard_points(torch.as_tensor(inp[f"{name}.map"],
+                                              device=dev),
+                              mesh.shape["map"], block=SHARD_BLOCK)
+    kw = (dict(block_cull=False) if name == "dense" else
+          dict(block_cull=True, block_size=SHARD_BLOCK,
+               num_blocks=int(inp["culled.G"]), super_size=SHARD_SUPER,
+               num_supers=int(inp["culled.GS"])))
+    return sharded_icp_register(
+        mesh, src, tgt, inp[f"{name}.R0"], inp[f"{name}.t0"],
+        DetectionMethod.SCHUR_CONDITION_NUMBER,
+        HandlingMethod.PRECONDITIONED_CG, ICPParams(), source_valid=src_v,
+        target_valid=tgt_v, **kw)
+
+
+def pose_graph_case(inp, dev):
+    """(poses, edges, prior_idx, prior_T, prior_info) of phase 9b's
+    window in f32 on ``dev``: optimize_pose_graph's default prior."""
+    from dcreg_tpu_torch.models.pose_graph import make_edges
+    poses = torch.as_tensor(inp["pg.init"], dtype=torch.float32, device=dev)
+    edges = make_edges(inp["pg.i"], inp["pg.j"],
+                       torch.as_tensor(inp["pg.Z"], dtype=torch.float32),
+                       info=torch.as_tensor(inp["pg.info"],
+                                            dtype=torch.float32), device=dev)
+    return (poses, edges, torch.zeros(1, dtype=torch.long, device=dev),
+            poses[:1], 1e8 * torch.eye(6, device=dev)[None])
+
+
+def rank_backend(device, world):
+    """How phase 9b's ranks meet: NCCL with a card per rank where the
+    machine has that many cards, else gloo with every rank on card 0
+    (NCCL refuses two ranks on one GPU)."""
+    if device == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def sharded_rank(rank, world, init_method, workdir, device):
+    """One rank of phase 9b's world (``rank_backend``): both
+    registrations on a 2 x 2 mesh, the host mesh (two 'hosts' of two
+    ranks) and the pose graph assembled with its edges over data = 2."""
+    from dcreg_tpu_torch import convert
+    from dcreg_tpu_torch.models.pose_graph import assemble_sharded
+    from dcreg_tpu_torch.parallel import make_mesh
+    from dcreg_tpu_torch.parallel.distributed import (init_distributed,
+                                                      make_host_mesh)
+    backend = rank_backend(device, world)
+    if device == "cuda":
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+    init_distributed(init_method, world, rank, backend=backend)
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    mesh = make_mesh(2, 2, device=device)
+    out = {}
+    for name in ("dense", "culled"):
+        for f, v in convert.sharded_result_to_numpy(
+                sharded_case(mesh, inp, name)).items():
+            out[f"{name}.{f}"] = v
+    host = make_host_mesh(map_per_host=2, device=device)
+    out["host_rows"] = host.ranks // int(os.environ["LOCAL_WORLD_SIZE"])
+    H, g, cost = assemble_sharded(host, *pose_graph_case(inp, device))
+    out.update({"pg.H": H.cpu().numpy(), "pg.g": g.cpu().numpy(),
+                "pg.cost": cost.cpu().numpy()})
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def free_port():
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(workdir, world, device):
+    """Run ``world`` ranks of this script (``--sharded-rank``) on
+    localhost; returns each rank's saved arrays.  Every rank is ended
+    before this returns."""
+    env = {**os.environ, "LOCAL_WORLD_SIZE": "2"}
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+         str(r), str(world), init, workdir, device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 9b rank {r} failed ({p.returncode}):"
+                               f"\n{log[-4000:]}")
+    return [dict(np.load(os.path.join(workdir, f"rank{r}.npz")))
+            for r in range(world)]
+
+
+def pose_diff(R, t, R_ref, t_ref):
+    """(translation difference m, rotation angle deg) of two poses."""
+    return (float(np.linalg.norm(np.asarray(t) - np.asarray(t_ref))),
+            rotation_angle_deg(np.asarray(R_ref).T @ np.asarray(R)))
+
+
+def run_sharded(seed, ctx, device: str = "cuda"):
+    """Phase 9 on phase 2's world, trajectory, scans and poses: (9a)
+    ``sharded_icp_register`` on a 1 x 1 mesh of a one-rank world (NCCL on
+    the card) against the whole map, two-level and flat cull; (9b) four
+    ranks (``rank_backend``): a 2 x 2 mesh (dense and culled), the
+    host mesh and ``assemble_sharded``, held against the 1 x 1 mesh and
+    the unsharded assembly; (9c) the native host runtime: its g++ build,
+    PCD I/O, the KD-tree as K2's exact oracle, voxel downsampling.
+    Returns K2's launches in (9c)."""
+    from dcreg_tpu_torch.io import native
+    from dcreg_tpu_torch.io.pcd import load_pcd
+    from dcreg_tpu_torch.models.icp import ICPParams
+    from dcreg_tpu_torch.models.pose_graph import _assemble
+    from dcreg_tpu_torch.ops import knn_kernels as kn
+    from dcreg_tpu_torch.ops.block_sparse import kd_block_order
+    from dcreg_tpu_torch.ops.degeneracy import (DetectionMethod,
+                                                HandlingMethod)
+    from dcreg_tpu_torch.parallel import (make_mesh, shard_points,
+                                          sharded_icp_register)
+    from dcreg_tpu_torch.parallel.distributed import init_distributed
+    world, gt, frames = ctx["world"], ctx["gt"], ctx["frames"]
+    t_start = time.perf_counter()
+    since = lambda: time.perf_counter() - t_start
+
+    # ---- 9a. a one-rank world on the card, mesh 1 x 1 ---------------------
+    backend = "nccl" if device == "cuda" else "gloo"
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                     backend=backend)
+    try:
+        mesh = make_mesh(1, 1, device=device)
+        F = SHARD_FRAMES
+        tgt, tgt_v = shard_points(torch.as_tensor(world, device=device), 1,
+                                  block=SHARD_BLOCK)
+        seeds = const_velocity_seeds(ctx["T_pre2"], ctx["T_pre1"],
+                                     ctx["odom_poses"][:F])
+        src = [torch.as_tensor(frames[f], device=device) for f in range(F)]
+        counts = []
+        for f in range(F):
+            for T in (seeds[f], ctx["odom_poses"][f]):
+                Tt = torch.as_tensor(T, dtype=torch.float32, device=device)
+                counts.append(cull_counts(src[f] @ Tt[:3, :3].T + Tt[:3, 3],
+                                          tgt, tgt_v))
+        G, GS = cull_caps(counts)
+        params = ICPParams()
+
+        def register(f, super_size):
+            return sharded_icp_register(
+                mesh, src[f], tgt, seeds[f][:3, :3], seeds[f][:3, 3],
+                DetectionMethod.SCHUR_CONDITION_NUMBER,
+                HandlingMethod.PRECONDITIONED_CG, params, target_valid=tgt_v,
+                block_cull=True, block_size=SHARD_BLOCK, num_blocks=G,
+                super_size=super_size, num_supers=GS)
+
+        def sweep(super_size, n=F):
+            return [register(f, super_size) for f in range(n)]
+
+        wall(lambda: register(0, SHARD_SUPER))
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        rows = {}
+        for name, sup in (("two_level", SHARD_SUPER), ("flat", 0)):
+            res, dt = wall(lambda: sweep(sup))
+            pos = np.stack([r.t.double().cpu().numpy() for r in res])
+            te = np.linalg.norm(pos - gt[:F, :3, 3], axis=1)
+            vs_map = np.linalg.norm(pos - ctx["odom_poses"][:F, :3, 3],
+                                    axis=1)
+            rows[name] = (res, {
+                "ms_per_registration": dt / F * 1e3,
+                "iters_per_frame": float(np.mean([int(r.iterations)
+                                                  for r in res])),
+                "converged_frac": float(np.mean([bool(r.converged)
+                                                 for r in res])),
+                "block_overflow_max": max(int(r.block_overflow)
+                                          for r in res),
+                "te_mean_m": float(te.mean()), "te_max_m": float(te.max()),
+                "max_dist_to_map_loop_m": float(vs_map.max())})
+        two, flat = rows["two_level"][0], rows["flat"][0]
+        flat_vs_two = max(pose_diff(a.R.cpu(), a.t.cpu(), b.R.cpu(),
+                                    b.t.cpu())[0] for a, b in zip(two, flat))
+        row = {"phase": "sharded_register", "mesh": [1, 1],
+               "backend": backend, "frames": F,
+               "map_points": int(world.shape[0]),
+               "block_size": SHARD_BLOCK, "super_size": SHARD_SUPER,
+               "num_blocks": G, "num_supers": GS,
+               "most_relevant_blocks": max(c[0] for c in counts),
+               "most_relevant_supers": max(c[1] for c in counts),
+               **{k: v[1] for k, v in rows.items()},
+               "flat_vs_two_level_max_m": flat_vs_two,
+               "peak_device_mem_gib": (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30 if device == "cuda"
+                                       else None),
+               "phase9_s": since()}
+        emit(row)
+        if not all(v[1]["block_overflow_max"] == 0
+                   and v[1]["converged_frac"] == 1.0
+                   and v[1]["te_mean_m"] < 0.05 and v[1]["te_max_m"] < 0.10
+                   and v[1]["max_dist_to_map_loop_m"] < 0.03
+                   for v in rows.values()):
+            raise RuntimeError(f"sharded registration gates failed: {row}")
+        prof = profile_window("sharded_register_profile",
+                              lambda: sweep(SHARD_SUPER,
+                                            SHARD_PROFILE_FRAMES))
+        trips = sum(int(r.iterations) for r in two[:SHARD_PROFILE_FRAMES])
+        prof["icp_iterations"] = trips
+        prof["kernels_per_icp_iteration"] = prof["kernel_launches"] / trips
+        prof["phase9_s"] = since()
+        emit(prof)
+        del tgt, tgt_v
+
+        # ---- 9b. four ranks: on the one card over gloo ------------------
+        c0 = gt[0][:3, 3]
+        T0 = seeds[0]
+        local = lambda pts: (pts - c0).astype(np.float32)
+        d2 = np.sum((world - c0) ** 2, axis=1)
+        # the dense case: 4,096 map points spread over the scan's 6 m
+        # ball (ground, walls and pillars: every direction constrained)
+        # and 512 of the scan's points
+        rng = np.random.default_rng(seed + 9)
+        ball = np.nonzero(d2 < 6.0 ** 2)[0]
+        inp = {"dense.map": local(world[np.sort(rng.choice(
+                   ball, 4096, replace=False))]),
+               "dense.scan": frames[0][np.sort(rng.choice(
+                   frames[0].shape[0], 512, replace=False))],
+               "culled.scan": frames[0],
+               "dense.R0": T0[:3, :3], "dense.t0": T0[:3, 3] - c0,
+               "culled.R0": T0[:3, :3], "culled.t0": T0[:3, 3] - c0}
+        disc = world[d2 < 30.0 ** 2]
+        inp["culled.map"] = local(disc[kd_block_order(disc, SHARD_BLOCK)])
+        cmap, cmap_v = shard_points(torch.as_tensor(inp["culled.map"],
+                                                    device=device), 2,
+                                    block=SHARD_BLOCK)
+        Tt = torch.as_tensor(T0, dtype=torch.float32, device=device)
+        p0 = torch.as_tensor(frames[0], device=device) @ Tt[:3, :3].T \
+            + (Tt[:3, 3] - torch.as_tensor(c0, dtype=torch.float32,
+                                           device=device))
+        # both layouts: one source shard, and two (other query blocks)
+        inp["culled.G"], inp["culled.GS"] = cull_caps(
+            [cull_counts(p0, cmap, cmap_v, shards=s) for s in (1, 2)])
+        i, j, Z, info, init = pose_graph_inputs(gt, seed + 8)
+        inp.update({"pg.i": i, "pg.j": j, "pg.Z": Z, "pg.info": info,
+                    "pg.init": init})
+        workdir = tempfile.mkdtemp(prefix="dcreg_shard_")
+        try:
+            np.savez(os.path.join(workdir, "inputs.npz"), **inp)
+            ranks, spawn_s = wall(lambda: spawn_ranks(workdir, 4, device))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        differ = sorted({k for r in ranks[1:] for k, v in ranks[0].items()
+                         if not np.array_equal(r[k], v, equal_nan=True)})
+        cases = {}
+        for name in ("dense", "culled"):
+            ref, ref_s = wall(lambda: sharded_case(mesh, inp, name))
+            got = {f: ranks[0][f"{name}.{f}"] for f in ("R", "t",
+                                                          "iterations",
+                                                          "converged",
+                                                          "block_overflow")}
+            dt_m, dr_deg = pose_diff(got["R"], got["t"], ref.R.cpu(),
+                                     ref.t.cpu())
+            cases[name] = {
+                "map_points": int(inp[f"{name}.map"].shape[0]),
+                "scan_points": int(inp[f"{name}.scan"].shape[0]),
+                "iterations_2x2": int(got["iterations"]),
+                "iterations_1x1": int(ref.iterations),
+                "converged_2x2": bool(got["converged"]),
+                "block_overflow_2x2": int(got["block_overflow"]),
+                "block_overflow_1x1": int(ref.block_overflow),
+                "vs_1x1_m": dt_m, "vs_1x1_deg": dr_deg,
+                "ms_1x1": ref_s * 1e3}
+        H, g, cost = _assemble(*pose_graph_case(inp, device))
+        rel = lambda a, b: float(np.abs(a - b).max()
+                                 / max(np.abs(b).max(), 1e-30))
+        pg = {"window": int(init.shape[0]), "edges": int(len(i)),
+              "H_rel": rel(ranks[0]["pg.H"], H.cpu().numpy()),
+              "g_rel": rel(ranks[0]["pg.g"], g.cpu().numpy()),
+              "cost_rel": rel(ranks[0]["pg.cost"], cost.cpu().numpy())}
+        row = {"phase": "sharded_multi_rank", "ranks": 4, "mesh": [2, 2],
+               "backend": rank_backend(device, 4), "device": device,
+               "cards": torch.cuda.device_count() if device == "cuda" else 0,
+               "host_rows": ranks[0]["host_rows"].tolist(),
+               "culled_caps": [int(inp["culled.G"]), int(inp["culled.GS"])],
+               "ranks_differ_in": differ, "spawn_and_run_s": spawn_s,
+               **cases, "pose_graph": pg, "phase9_s": since()}
+        emit(row)
+        if differ or row["host_rows"] != [[0, 0], [1, 1]] or not all(
+                c["vs_1x1_m"] <= 1e-4 and c["vs_1x1_deg"] <= 1e-3
+                and c["iterations_2x2"] == c["iterations_1x1"]
+                and c["block_overflow_2x2"] == 0 == c["block_overflow_1x1"]
+                for c in cases.values()) or max(
+                pg["H_rel"], pg["g_rel"], pg["cost_rel"]) > 1e-5:
+            raise RuntimeError(f"multi-rank gates failed: {row}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # ---- 9c. the native host runtime ---------------------------------------
+    from dcreg_tpu_torch.cuda_build import build_host_library
+    b = native.build()          # the library the port loads
+    if native.get_lib() is None:
+        raise RuntimeError("the native library built but did not load")
+    with tempfile.TemporaryDirectory() as d:   # a timed build from scratch
+        fresh = build_host_library(native.SOURCE, "dcreg_native",
+                                   build_dir=d)
+    out_dir = tempfile.mkdtemp(prefix="dcreg_pcd_")
+    try:
+        path = os.path.join(out_dir, "scan.pcd")
+        native.pcd_write_native(path, frames[0])
+        a = native.pcd_read_native(path)["xyz"]
+        pcd_same = (a.tobytes() == load_pcd(path, prefer_native=False)[
+            "xyz"].tobytes() == frames[0].tobytes())
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    tube = world[tube_mask(world, gt)]
+    T = torch.as_tensor(gt[0], dtype=torch.float32, device=device)
+    q = torch.as_tensor(frames[0], device=device) @ T[:3, :3].T + T[:3, 3]
+    tree, tree_s = wall(lambda: native.KDTree(tube))
+    (d_t, i_t), kd_s = wall(lambda: tree.knn(q.cpu().numpy(), k=6))
+    tube_t = torch.as_tensor(tube, device=device)
+    kn.knn_candidates.launches = 0
+    (dk, ik), k2_s = wall(lambda: kn.knn(q, tube_t, k=5, kk=8))
+    k2_launches = kn.knn_candidates.launches
+    dk, ik = dk.cpu(), ik.cpu().numpy()
+    ulps = ulp_diff(dk, torch.from_numpy(np.ascontiguousarray(d_t[:, :5])))
+    tie = np.any(d_t[:, 1:] == d_t[:, :-1], axis=1)
+    ids_differ = ~np.all(ik == i_t[:, :5], axis=1)
+    vox = 0.5
+    cents, vox_s = wall(lambda: native.voxel_downsample_native(tube, vox))
+    vc = voxel_check(tube, vox, cents)
+    row = {"phase": "native_runtime", "build_s": fresh["seconds"],
+           "library": os.path.relpath(b["path"]),
+           "pcd_round_trip_bytes_equal": bool(pcd_same),
+           "tube_points": int(tube.shape[0]), "queries": int(q.shape[0]),
+           "kdtree_build_s": tree_s, "kdtree_knn_s": kd_s,
+           "k2_knn_s": k2_s, "k2_launches": k2_launches,
+           "max_ulp": int(ulps.max()), "ids_differ": int(ids_differ.sum()),
+           "ids_differ_not_tied": int((ids_differ & ~tie).sum()),
+           "voxel_m": vox, "centroids": int(cents.shape[0]),
+           "voxel_s": vox_s, **vc, "phase9_s": since()}
+    emit(row)
+    if not (pcd_same and row["max_ulp"] <= 1
+            and row["ids_differ_not_tied"] == 0
+            and vc["unmatched_centroids"] == vc["hash_merges"]
+            and vc["voxels_missing"] == 0
+            and vc["centroids_expected"] == row["centroids"]
+            and (device == "cpu" or k2_launches > 0)):
+        raise RuntimeError(f"native runtime checks failed: {row}")
+    return k2_launches
+
+
+def voxel_check(xyz, voxel, cents, tol=1e-6):
+    """``voxel_downsample_native``'s centroids against a numpy centroid
+    per voxel (float64 sums in input order, as the C++ sums).  The C++
+    keys voxels by a hash of their integer coordinates, so voxels whose
+    keys collide merge into one centroid.  A centroid matches the unmerged
+    voxel of its key when within ``tol`` metres of its numpy centroid; a
+    right answer has one centroid per key, every unmerged voxel matched,
+    and as many unmatched centroids as merged keys."""
+    def key(c):
+        return (c[:, 0] * 73856093) ^ (c[:, 1] * 19349669) \
+            ^ (c[:, 2] * 83492791)
+
+    inv = 1.0 / voxel
+    cell = np.floor(xyz.astype(np.float64) * inv).astype(np.int64)
+    cells, which, count = np.unique(cell, axis=0, return_inverse=True,
+                                    return_counts=True)
+    which = which.reshape(-1)
+    mean = np.stack([np.bincount(which, xyz[:, a].astype(np.float64))
+                     for a in range(3)], axis=1) / count[:, None]
+    keys = key(cells)
+    uk, kcount = np.unique(keys, return_counts=True)
+    alone = np.isin(keys, uk[kcount == 1])
+    single = dict(zip(keys[alone].tolist(), mean[alone].astype(np.float32)))
+    got = key(np.floor(cents.astype(np.float64) * inv).astype(np.int64))
+    err, unmatched, seen = 0.0, 0, set()
+    for kk, c in zip(got.tolist(), cents):
+        ref = single.get(kk)
+        d = float(np.abs(ref - c).max()) if ref is not None else np.inf
+        if kk not in seen and d <= tol:
+            seen.add(kk)
+            err = max(err, d)
+        else:
+            unmatched += 1
+    return {"centroids_expected": int(uk.shape[0]),
+            "hash_merges": int((kcount > 1).sum()),
+            "unmatched_centroids": unmatched,
+            "voxels_missing": len(single) - len(seen),
+            "centroid_max_err_m": err}
+
+
+# --------------------------------------------------------------------------
 
 def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch.models.icp import ICPParams
@@ -1210,7 +1698,7 @@ def run(seed: int, device: str = "cuda"):
         raise RuntimeError(f"K1 not launched on every path: {launches}")
     a = rows["a_map_B1_slotted_nomask"]
     ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
-           "odom_poses": est.astype(np.float64)}
+           "T_pre2": T_pre2, "odom_poses": est.astype(np.float64)}
     return ctx, {
         "name": "K1 block_knn_keys", "route": "cuda",
         "source": "dcreg_tpu_torch/csrc/block_knn.cu",
@@ -1260,7 +1748,13 @@ def ptxas_summary(log):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--sharded-rank", nargs=5, help=argparse.SUPPRESS,
+                    metavar=("RANK", "WORLD", "INIT", "DIR", "DEVICE"))
     args = ap.parse_args()
+    if args.sharded_rank:               # one rank process of phase 9b
+        r, w, init, workdir, dev = args.sharded_rank
+        sharded_rank(int(r), int(w), init, workdir, dev)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1274,6 +1768,9 @@ def main():
     k2_voxel = run_voxel(args.seed, ctx)
     k2["launches"] += k2_voxel
     k2["launches_by_path"]["voxel_knn_check"] = k2_voxel
+    k2_native = run_sharded(args.seed, ctx)
+    k2["launches"] += k2_native
+    k2["launches_by_path"]["native_kdtree_check"] = k2_native
     emit({"kernels": [k1, k2, k3]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ meta fields (for example ``{f.name: np.asarray(getattr(idx, f.name))}``
 over the dataclass fields, with a MapIndex's ``block`` given as such a
 dict too) and becomes the port's index on a device.  Parameter
 NamedTuples arrive as their ``_asdict()`` (nested NamedTuples or dicts).
-Nothing here imports JAX.
+A sharded registration's result goes the other way, to numpy, from
+either package.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -111,3 +112,10 @@ def pose_graph_edges_from_arrays(fields, device=None) -> PoseGraphEdges:
     return PoseGraphEdges(i=put(fields["i"]).long(), j=put(fields["j"]).long(),
                           Z=put(fields["Z"]), info=put(fields["info"]),
                           valid=put(fields["valid"]).bool())
+
+
+def sharded_result_to_numpy(res) -> dict:
+    """The fields of a ShardedICPResult -- the port's tensors or the JAX
+    package's arrays -- as numpy arrays by field name."""
+    return {f: (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x)) for f, x in zip(res._fields, res)}

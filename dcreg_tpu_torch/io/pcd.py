@@ -1,8 +1,9 @@
 """Minimal PCD (Point Cloud Data) reader/writer (counterpart of
-``dcreg_tpu/io/pcd.py``, numpy only).
+``dcreg_tpu/io/pcd.py``).
 
 Supports the subsets the DCReg artifacts use: binary and ascii, fields
-x y z [intensity | rgb], float32.  Host-side IO feeding device tensors.
+x y z [intensity | rgb], float32.  Host-side IO feeding device tensors:
+the C++ reader of ``io/native.py`` where it builds, numpy otherwise.
 """
 from __future__ import annotations
 
@@ -10,14 +11,25 @@ import io
 
 import numpy as np
 
+from . import native
+
 _TYPE_MAP = {("F", 4): "<f4", ("F", 8): "<f8",
              ("U", 1): "<u1", ("U", 2): "<u2", ("U", 4): "<u4",
              ("I", 1): "<i1", ("I", 2): "<i2", ("I", 4): "<i4"}
 
 
-def load_pcd(path):
+def load_pcd(path, prefer_native: bool = True):
     """Load a PCD file -> dict with 'xyz' (N, 3) float32 plus any extra
-    fields by name."""
+    fields by name.
+
+    With ``prefer_native`` the C++ reader (``io/native.py``) parses the
+    file where its library is available; the numpy parser below takes
+    the rest, and the layouts the C++ reader refuses."""
+    if prefer_native and native.available():
+        try:
+            return native.pcd_read_native(path)
+        except RuntimeError:
+            pass
     with open(path, "rb") as f:
         raw = f.read()
     # parse header line by line

@@ -196,3 +196,43 @@ def optimize_pose_graph(poses0, edges: PoseGraphEdges, prior_idx=None,
     _, _, final_cost = _assemble(poses, edges, prior_idx, prior_T, prior_info)
     return PoseGraphResult(poses=poses, iterations=it, final_cost=final_cost,
                            converged=converged)
+
+
+def assemble_sharded(mesh, poses, edges: PoseGraphEdges, prior_idx, prior_T,
+                     prior_info):
+    """The normal system with the edges sharded over the mesh's ``data``
+    axis: each rank assembles its share of the edges (E must divide by
+    the axis) with the priors, the (6W, 6W) H, g and the cost are summed
+    over ``data``, and the (n_data - 1) extra copies of the priors come
+    off again -- the window-parallel analogue of the GN point reduction.
+    Every rank of the mesh calls it; it runs on ``mesh.device``."""
+    from ..parallel.sharded import _all_reduce
+    n_data = mesh.shape["data"]
+    E = edges.i.shape[0]
+    if E % n_data:
+        raise ValueError(f"{E} edges do not divide over {n_data} data "
+                         "shards")
+    dev = mesh.device
+    rows = slice(mesh.coords[0] * (E // n_data),
+                 (mesh.coords[0] + 1) * (E // n_data))
+    local = PoseGraphEdges(*(x[rows].to(dev) for x in edges))
+    poses = poses.to(dev)
+    H, g, cost = _assemble(poses, local, prior_idx, prior_T, prior_info)
+    W6 = H.shape[0]
+    tot = _all_reduce(mesh, torch.cat([H.reshape(-1), g, cost.reshape(1)]))
+    H, g, cost = tot[:W6 * W6].reshape(W6, W6), tot[W6 * W6:-1], tot[-1]
+    Hp, gp, cp = _prior_system(poses, prior_idx, prior_T, prior_info)
+    scale = n_data - 1
+    return H - scale * Hp, g - scale * gp, cost - scale * cp
+
+
+def _prior_system(poses, prior_idx, prior_T, prior_info):
+    """The normal system of the priors alone (one invalid edge)."""
+    dtype, dev = poses.dtype, poses.device
+    empty = PoseGraphEdges(
+        i=torch.zeros(1, dtype=torch.long, device=dev),
+        j=torch.zeros(1, dtype=torch.long, device=dev),
+        Z=torch.eye(4, dtype=dtype, device=dev)[None],
+        info=torch.zeros((1, 6, 6), dtype=dtype, device=dev),
+        valid=torch.zeros(1, dtype=torch.bool, device=dev))
+    return _assemble(poses, empty, prior_idx, prior_T, prior_info)

@@ -275,7 +275,8 @@ def test_pcd_round_trip_against_jax(tmp_path, fields):
     save_pcd(str(ours), xyz, **kw)
     j_save_pcd(str(ref), xyz, **kw)
     assert ours.read_bytes() == ref.read_bytes()
-    a, b = load_pcd(str(ours)), j_load_pcd(str(ref), prefer_native=False)
+    a = load_pcd(str(ours), prefer_native=False)
+    b = j_load_pcd(str(ref), prefer_native=False)
     assert a.keys() == b.keys()
     for k in a:
         assert np.array_equal(a[k], b[k]), k
