@@ -45,15 +45,15 @@ sm_90a), then runs on the card:
      iteration 10 of any other); one Ours, XICP and O3D run each under
      the profiler;
   7. the ``kernels`` line: K1, K2 and K3 with their launches on each
-     path (K2's including (8b) and (9c)), times, bounds and library
-     times;
+     path (K2's including (8b) and (9c), K1's (10a) and (10b)), times,
+     bounds and library times; printed after phase 10;
   8. on phase 2's world, trajectory and scans: (8a) the voxel map index
      (``build_voxel_grid`` over the whole map on the card) and the voxel
      odometry loop ``run_odometry`` over the 128 frames from the pose
      before frame 0, f32, voxel edge = search radius, the voxel capacity
      from the largest occupancy around the trajectory; gated on every
      frame converging, mean translation error < 5 cm, max < 10 cm and
-     every position within 3 cm of phase 2's; a profile window of 8
+     every position within 3 cm of phase 2's; a profile window of 2
      frames; (8b) ``voxel_knn`` against K2 (``knn``) for frame 0 at its
      GT pose: for every query whose 5th distance is within the search
      radius the same neighbours (but for exact ties) at distances
@@ -84,7 +84,28 @@ sm_90a), then runs on the card:
      native runtime: its g++ build, a PCD written and read back byte for
      byte, the KD-tree over phase 8b's tube as K2's exact oracle (equal
      ids but at ties, within 1 ulp) and voxel downsampling against a
-     numpy centroid per voxel (hash merges counted).
+     numpy centroid per voxel (hash merges counted);
+ 10. the evaluation entry points: (10a) the degenerate-corridor
+     experiment through ``dcreg_tpu_torch.scripts.run_corridor_experiment``
+     (108,318 map points, 45 frames of 1,500 points, the six methods of
+     its METHODS, f32), gated on its reference envelope (DCReg raw ATE
+     < 10 cm and recall > 0.95; ME-SR, ME-TReg and FCN-SR above 10x
+     DCReg's), zero overflow for DCReg, ME-TSVD and NONE, DCReg 45/45
+     and NONE 0/45 frames degenerate, the raw ATE of DCReg, ME-TSVD and
+     NONE within 0.5 cm of results/corridor_experiment's and DCReg's
+     poses within 1e-4 m of NONE's; K1 held bit for bit against its
+     plain twin at the corridor loop's own call (frame 0's reused pair
+     list and live mask, the corridor's capacities and radii); K1's
+     launches per method, and two DCReg and two ME-TSVD frames under
+     the profiler; (10b) bench.py's
+     map-scale baseline rows ME-TSVD, ME-TReg and FCN-SR through
+     ``run_odometry_map`` on phase 2's map, capacities and first 16
+     frames: finite poses for all three; for ME-TSVD and ME-TReg zero
+     overflow, no degenerate frame, every frame converged, mean
+     translation error < 5 cm and max < 10 cm; for FCN-SR, which drifts
+     by design, no pair dropped from any frame's list (its reuse-guard
+     breaches are counted) and its error beside the JAX package's
+     recorded row.
 
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
@@ -835,6 +856,8 @@ def run_pair(seed: int, device: str = "cuda"):
 # warm-up predicts more than this many seconds for all of them
 VOXEL_TIMED_LIMIT_S = 120.0
 VOXEL_WARM_FRAMES = 4
+# the profiler's processing of a voxel-loop frame costs about 12 s
+VOXEL_PROFILE_FRAMES = 2
 
 
 def voxel_capacity(tube, grid):
@@ -938,8 +961,8 @@ def run_voxel(seed, ctx, device: str = "cuda"):
             and te.max() < 0.10 and vs_map.max() < 0.03):
         raise RuntimeError(f"voxel odometry gates failed: {row}")
     prof = profile_window("voxel_odometry_profile",
-                          lambda: odom(PROFILE_FRAMES))
-    prof_iters = int(res.iterations[:PROFILE_FRAMES].sum())
+                          lambda: odom(VOXEL_PROFILE_FRAMES))
+    prof_iters = int(res.iterations[:VOXEL_PROFILE_FRAMES].sum())
     prof["icp_trips"] = prof_iters
     prof["kernels_per_icp_trip"] = prof["kernel_launches"] / max(prof_iters,
                                                                  1)
@@ -1508,6 +1531,192 @@ def voxel_check(xyz, voxel, cents, tol=1e-6):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the corridor experiment and the map-scale baseline rows
+# --------------------------------------------------------------------------
+
+CORRIDOR_RECORDED = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "results", "corridor_experiment",
+                                 "corridor_summary.json")
+CORRIDOR_PROFILE_FRAMES = 2
+# raw ATE of these rows against the recorded artifact's, and their
+# overflow; DCReg and NONE give the same poses
+CORRIDOR_STABLE = ("DCReg", "ME-TSVD", "NONE")
+CORRIDOR_ATE_TOL_M = 0.005
+MAP_BASELINES = (("ME-TSVD", "FULL_EVD_MIN_EIGENVALUE", "TRUNCATED_SVD"),
+                 ("ME-TReg", "FULL_EVD_MIN_EIGENVALUE",
+                  "STANDARD_REGULARIZATION"),
+                 ("FCN-SR", "FULL_SVD_CONDITION", "SOLUTION_REMAPPING"))
+MAP_BASELINE_FRAMES = 16
+MAP_BASELINE_WARM_FRAMES = 2
+# the JAX package's recorded FCN-SR row at map scale (BENCH_r05.json
+# map_scale.baselines); accuracy only
+FCN_SR_RECORDED = {"te_mean_m": 0.45751, "iters_mean": 10.25}
+
+
+def run_corridor(device: str = "cuda"):
+    """(10a) The corridor experiment through the port's entry point
+    ``scripts.run_corridor_experiment.main`` (108,318 map points, 45
+    frames of 1,500 points, six methods, f32), gated on its own
+    reference envelope, overflow, degenerate frames, the recorded raw ATE
+    of DCReg, ME-TSVD and NONE, and DCReg's poses equal to NONE's; K1
+    held bit for bit against its plain twin at the corridor loop's own
+    call (frame 0's reused list and live mask); then two DCReg and two
+    ME-TSVD frames under the profiler.  Returns K1's launches in ``main``
+    and the K1 check's row."""
+    from dcreg_tpu_torch.io.tum import load_tum
+    from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.scripts import run_corridor_experiment as rce
+    t_start = time.perf_counter()
+    with open(CORRIDOR_RECORDED) as f:
+        recorded = json.load(f)
+    inp = rce.prepare(torch.device(device))
+    S, G, P = inp["caps"]
+    # frame 0's constant-velocity seed, as the loop computes it
+    T_pred = inp["T_pre1"] @ np.linalg.inv(inp["T_pre2"]) @ inp["T_pre1"]
+    k1_row = check_k1("corridor_live_B1_reuse_mask", k1_inputs(
+        "map_reuse", inp["frames_s"][0], inp["mindex"], T_pred[None, :3, :3],
+        T_pred[None, :3, 3], rce.R_CULL0 + rce.REUSE_MARGIN,
+        {"S": S, "G": G, "P": P}, device, live_radius=rce.R_CULL0,
+        key_radius=inp["params"].corr.search_radius))
+
+    by_method = {}                    # K1's launches per method in main
+
+    def after_method(name):
+        by_method[name] = tk.block_knn_keys.launches \
+            - sum(by_method.values())
+
+    out_dir = rce.default_out_dir()
+    tk.block_knn_keys.launches = 0
+    rc, seconds = wall(lambda: rce.main(out_dir, device, inputs=inp,
+                                        after_method=after_method))
+    launches = tk.block_knn_keys.launches
+    with open(os.path.join(out_dir, "corridor_summary.json")) as f:
+        summary = json.load(f)
+    poses = {m: load_tum(os.path.join(out_dir, f"{m}.tum"))[1]
+             for m in ("DCReg", "NONE")}
+    dc_vs_none = float(np.abs(poses["DCReg"][:, :3, 3]
+                              - poses["NONE"][:, :3, 3]).max())
+    rows = {}
+    for name, _, _ in rce.METHODS:
+        m, r = summary[name], recorded[name]
+        rows[name] = {
+            "ate_raw_cm": m["ate_raw_rmse_m"] * 100,
+            "recorded_ate_raw_cm": r["ate_raw_rmse_m"] * 100,
+            "rpe_trans_mean_m": m["rpe_trans_mean_m"],
+            "rpe_rot_mean_deg": m["rpe_rot_mean_deg"],
+            "rr": m["registration_recall"],
+            "recorded_rr": r["registration_recall"],
+            "ac_rmse_cm": m["map_accuracy"]["ac_rmse"] * 100,
+            "recorded_ac_rmse_cm": r["map_accuracy"]["ac_rmse"] * 100,
+            "degenerate_frames": m["degenerate_frames"],
+            "converged_frames": m["converged_frames"],
+            "pair_overflow_max": m["pair_overflow_max"],
+            "ms_per_frame": m["ms_per_frame_wall"],
+            "k1_launches": by_method.get(name, 0)}
+    row = {"phase": "corridor", "out_dir": os.path.relpath(out_dir),
+           "rc": rc, "seconds": seconds, "k1_launches": launches,
+           "dcreg_vs_none_max_m": dc_vs_none, "methods": rows}
+    emit(row)
+    ate_ok = all(abs(summary[m]["ate_raw_rmse_m"]
+                     - recorded[m]["ate_raw_rmse_m"]) < CORRIDOR_ATE_TOL_M
+                 for m in CORRIDOR_STABLE)
+    if not (rc == 0 and ate_ok and dc_vs_none < 1e-4
+            and all(summary[m]["pair_overflow_max"] == 0
+                    for m in CORRIDOR_STABLE)
+            and summary["DCReg"]["degenerate_frames"] == 45
+            and summary["NONE"]["degenerate_frames"] == 0
+            and (device == "cpu"
+                 or all(r["k1_launches"] > 0 for r in rows.values()))):
+        raise RuntimeError(f"corridor gates failed: {row}")
+
+    for name, det, hand in rce.METHODS:
+        if name not in ("DCReg", "ME-TSVD"):
+            continue
+        held = {}
+
+        def frames():
+            held["res"] = rce.run_method(inp, det, hand, device,
+                                         n_frames=CORRIDOR_PROFILE_FRAMES)
+
+        frames()
+        prof = profile_window(f"corridor_profile_{name}", frames)
+        trips = int(held["res"].iterations.sum())
+        prof["icp_iterations"] = trips
+        prof["kernels_per_icp_iteration"] = prof["kernel_launches"] / trips
+        prof["phase10_s"] = time.perf_counter() - t_start
+        emit(prof)
+    return launches, k1_row
+
+
+def run_map_baselines(ctx, device: str = "cuda"):
+    """(10b) ``bench.py``'s map-scale baseline rows through
+    ``run_odometry_map`` on phase 2's map, capacities and first 16
+    frames: ME-TSVD and ME-TReg gated on finite poses, zero overflow, no
+    degenerate frame, every frame converged and the translation limits of
+    ``bench.py:356-358``; FCN-SR on finite poses and no pair dropped from
+    the list (the reuse guard's breach, at most one per frame, is
+    counted), its error printed beside the JAX package's recorded row.
+    Returns K1's launches in the timed runs."""
+    from dcreg_tpu_torch.models.icp import ICPParams
+    from dcreg_tpu_torch.models.odometry import run_odometry_map
+    from dcreg_tpu_torch.ops import block_knn as tk
+    S, G, P = ctx["caps"]
+    gt = ctx["gt"][:MAP_BASELINE_FRAMES]
+    launches = 0
+    for name, det, hand in MAP_BASELINES:
+        def run_b(n):
+            return run_odometry_map(
+                ctx["frames"][:n], ctx["mindex"], ctx["world_t"],
+                T0=ctx["T_pre1"], T_prev_init=ctx["T_pre2"], detection=det,
+                handling=hand, icp_params=ICPParams(), num_supers=S,
+                max_per_query=G, num_pairs=P, initial_cull_radius=R_CULL0,
+                reuse_margin=REUSE_MARGIN, device=device)
+
+        wall(lambda: run_b(MAP_BASELINE_WARM_FRAMES))
+        tk.block_knn_keys.launches = 0
+        res, dt = wall(lambda: run_b(MAP_BASELINE_FRAMES))
+        k1 = tk.block_knn_keys.launches
+        launches += k1
+        est = res.poses.double().cpu().numpy()
+        te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+        row = {"phase": "map_baseline", "method": name,
+               "frames": MAP_BASELINE_FRAMES,
+               "ms_per_frame": dt / MAP_BASELINE_FRAMES * 1e3,
+               "iters_per_frame": float(res.iterations.float().mean()),
+               "te_mean_m": float(te.mean()), "te_max_m": float(te.max()),
+               "converged_frac": float(res.converged.float().mean()),
+               "degenerate_frames": int(res.is_degenerate.sum()),
+               "ovf_max": int(res.pair_overflow.max()),
+               "k1_launches": k1}
+        ok = bool(np.isfinite(est).all()) and (device == "cpu" or k1 > 0)
+        if name == "FCN-SR":
+            row["recorded_jax_row"] = FCN_SR_RECORDED
+            # FCN-SR drifts by design, so the reuse guard may fire (one
+            # count per frame), on the same frames as in the JAX package
+            # (tests/test_torch_map_baselines.py); the pair list at the
+            # frame's seed must still hold every pair (k1_inputs raises
+            # where it does not)
+            ovf = res.pair_overflow.cpu().numpy()
+            seeds = const_velocity_seeds(ctx["T_pre2"], ctx["T_pre1"], est)
+            for f in np.nonzero(ovf)[0]:
+                k1_inputs("map", ctx["frames"][f], ctx["mindex"],
+                          seeds[f][None, :3, :3], seeds[f][None, :3, 3],
+                          R_CULL0 + REUSE_MARGIN, {"S": S, "G": G, "P": P},
+                          device)
+            row["guard_breach_frames"] = int((ovf > 0).sum())
+            ok = ok and row["ovf_max"] <= 1
+        else:
+            ok = ok and (row["ovf_max"] == 0
+                         and row["degenerate_frames"] == 0
+                         and bool(res.converged.all())
+                         and te.mean() < 0.05 and te.max() < 0.10)
+        emit(row)
+        if not ok:
+            raise RuntimeError(f"map-scale baseline gates failed: {row}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch.models.icp import ICPParams
@@ -1698,7 +1907,8 @@ def run(seed: int, device: str = "cuda"):
         raise RuntimeError(f"K1 not launched on every path: {launches}")
     a = rows["a_map_B1_slotted_nomask"]
     ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
-           "T_pre2": T_pre2, "odom_poses": est.astype(np.float64)}
+           "T_pre2": T_pre2, "odom_poses": est.astype(np.float64),
+           "mindex": mindex, "world_t": world_t, "caps": (S, G, P)}
     return ctx, {
         "name": "K1 block_knn_keys", "route": "cuda",
         "source": "dcreg_tpu_torch/csrc/block_knn.cu",
@@ -1771,6 +1981,14 @@ def main():
     k2_native = run_sharded(args.seed, ctx)
     k2["launches"] += k2_native
     k2["launches_by_path"]["native_kdtree_check"] = k2_native
+    corridor, k1_corridor = run_corridor()
+    k1["shapes"]["corridor_live_B1_reuse_mask"] = {
+        f: k1_corridor[f] for f in k1["shapes"]["a_map_B1_slotted_nomask"]}
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_corridor["max_abs_err"])
+    for path, n in (("corridor", corridor),
+                    ("map_baselines", run_map_baselines(ctx))):
+        k1["launches"] += n
+        k1["launches_by_path"][path] = n
     emit({"kernels": [k1, k2, k3]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

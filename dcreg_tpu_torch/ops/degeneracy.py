@@ -250,6 +250,26 @@ def targeted_preconditioner(analysis: DegeneracyAnalysis,
     return torch.where(ok[..., None, None], P, _eye6_like(P))
 
 
+def preconditioner_axis_aligned_view(analysis: DegeneracyAnalysis,
+                                     kappa_target: float):
+    """The targeted preconditioner with each 3x3 block's rows and columns
+    permuted into axis-aligned order (``align_to_axes``): the convention
+    of the recorded "Ours" P block.  The PCG solve itself uses the
+    world-frame ``targeted_preconditioner``; this view is for writers."""
+    P = targeted_preconditioner(analysis, kappa_target)
+
+    def permuted(B, V, lam):
+        o = align_to_axes(V, lam).order                 # (..., 3)
+        rows = torch.gather(B, -2, o[..., :, None].expand(B.shape))
+        return torch.gather(rows, -1, o[..., None, :].expand(B.shape))
+
+    return _block_diag(
+        permuted(P[..., :3, :3], analysis.V_schur_rot,
+                 analysis.lambda_schur_rot),
+        permuted(P[..., 3:, 3:], analysis.V_schur_trans,
+                 analysis.lambda_schur_trans))
+
+
 def adaptive_regularizer(analysis: DegeneracyAnalysis, alpha: float):
     """ME-AReg: V diag(relu(lam_max / alpha - lam)) V^T per Schur block;
     zero where the Schur complement was not computable."""

@@ -144,6 +144,19 @@ def inv_3x3(A):
     return adj * (1.0 / det)[..., None, None], det
 
 
+def solve_lstsq_normal(A, b, reg: float = 0.0):
+    """Least squares of tall skinny systems (..., n, 3) through the normal
+    equations: x = (A^T A + reg I)^-1 A^T b with the closed-form 3x3
+    inverse.  Returns (x, det(A^T A + reg I))."""
+    AtA = torch.einsum("...ij,...ik->...jk", A, A)
+    if reg:
+        AtA = AtA + reg * torch.eye(A.shape[-1], dtype=A.dtype,
+                                    device=A.device)
+    Atb = torch.einsum("...ij,...i->...j", A, b)
+    inv, det = inv_3x3(AtA)
+    return torch.einsum("...ij,...j->...i", inv, Atb), det
+
+
 def eigh3_closed(A):
     """Closed-form eigendecomposition of symmetric 3x3 matrices (batched):
     trigonometric eigenvalues, eigenvectors from the largest cross product
