@@ -11,16 +11,30 @@ sm_90a), then runs on the card:
      B=128, global ids, lane mask; (a_live) the localization loop's own
      call: the reused pair list with its live mask; (e) B=33, two mask
      words; (f) B=1 with one query block's run max_per_query long; each
-     row prints the split and CTA count the wrapper launched;
-  2. the localization loop ``run_odometry_map``: 128 frames of 5,000
-     points against a synthetic prior map (53M points by default,
-     DCREG_SMOKE_MAP_POINTS overrides), gated on every frame converging,
-     zero overflow, mean translation error < 5 cm and max < 10 cm;
+     row prints the split and CTA count the wrapper launched; and K1
+     alone captured in a CUDA graph and replayed, bit for bit, one launch
+     counted per replay;
+  2. the localization loop ``run_odometry_map``, replayed as CUDA graphs
+     (``dcreg_tpu_torch.graphs``; the capture timed apart, in the warm
+     run): 128 frames of 5,000 points against a synthetic prior map (53M
+     points by default, DCREG_SMOKE_MAP_POINTS overrides), gated on every
+     frame converging, zero overflow, mean translation error < 5 cm and
+     max < 10 cm; the first 16 frames eagerly (graph=False) and graphed
+     in alternating order over three rounds: equal iterations, poses
+     within 1e-6 m and 1e-6 rad, bit-equality and peak memory reported;
+     a stale-cache check (a second map index over the map shifted by
+     +1 m in x, the same shapes: frame 0 must come out shifted by 1 m,
+     and the first index must replay its own graphs bit for bit); the
+     8-frame profile window graphed (under 50 kernel-launch calls per
+     ICP iteration, the rest by ``cudaGraphLaunch``) and eager;
   3. a B=128 Monte-Carlo batch in MapIndex mode with full telemetry,
-     gated on convergence, zero overflow, mean errors < 5 cm / 0.5 deg;
+     graphed, gated on convergence, zero overflow, mean errors < 5 cm /
+     0.5 deg, and rerun eagerly (per-lane iterations equal, poses within
+     1e-5);
   4. a B=128 BlockIndex-mode batch on a 16,384-point neighbourhood of
-     frame 0, gated on convergence and zero overflow, and rerun with
-     the plain K1 forced (per-lane iterations equal, poses within 1e-5);
+     frame 0, graphed, gated on convergence and zero overflow, rerun
+     eagerly and with the plain K1 forced (each: per-lane iterations
+     equal, poses within 1e-5);
   5. K2 and K3 against their plain twins, bit for bit, at (d) the 5-NN
      self query of the 8,192-point cylinder, (e) its nn1, (f) 65,536
      points with 30% of the targets invalid, where ``knn_grouped`` must
@@ -107,6 +121,9 @@ sm_90a), then runs on the card:
      breaches are counted) and its error beside the JAX package's
      recorded row.
 
+Every registration of phases 2, 3, 4, 10a and 10b runs as CUDA graph
+replays; the ``graphs`` line counts the captures and their seconds.
+
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
 exits non-zero.  Without a CUDA device it exits non-zero at once.  The
@@ -180,14 +197,22 @@ PORT_KERNELS = ("block_knn_keys_kernel", "block_knn_merge_kernel",
                 "knn_candidates_kernel", "group_min_kernel")
 
 
+# host calls of the CUDA runtime that launch work: kernels one by one, or
+# a captured graph at once
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cudaGraphLaunch")
+
+
 def profile_window(name, fn, top=8):
     """Where the time of one call of ``fn`` goes: wall time, device-busy
     share (sum of kernel times over wall time), the port's own kernels,
     the kernels with the most device time and the host-side ops with the
     most self time, the CUDA kernels K1's wrapper ran per call, counted
-    by the profiler, and K2's wrapper calls per kk.  Only
+    by the profiler, K2's wrapper calls per kk, and the host's launch
+    calls (``LAUNCH_CALLS``: count and self ms).  Only
     events that ran on the card count as device time: a host op's own
-    device total repeats its kernels' time."""
+    device total repeats its kernels' time; the profiler records the
+    kernels of a graph replay one by one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from dcreg_tpu_torch.ops import block_knn as tk
@@ -221,6 +246,9 @@ def profile_window(name, fn, top=8):
             "k1_calls": k1_calls, "k2_calls_by_kk": k2_calls,
             "k1_cuda_kernels_per_call": (k1_kernels / k1_calls
                                          if k1_calls else None),
+            "host_launch_calls": {
+                e.key: {"count": e.count, "ms": e.self_cpu_time_total / 1e3}
+                for e in on_host if e.key in LAUNCH_CALLS},
             "top_device": [row(e, dev_us(e)) for e in by_dev],
             "top_host_self": [row(e, e.self_cpu_time_total) for e in by_cpu]}
 
@@ -449,6 +477,184 @@ def check_k1(name, a):
            "run_max": int(runs.max())}
     row.update(k1_bound(a))
     emit(row)
+    return row
+
+
+def check_k1_graph(name, a):
+    """K1 alone captured in a CUDA graph and replayed (``graphs.Graphs``):
+    keys bit for bit against the plain twin, and one launch counted per
+    replay.  The kernel's library links its own static CUDA runtime; this
+    shows its launches into PyTorch's capturing stream are captured."""
+    from dcreg_tpu_torch import graphs
+    from dcreg_tpu_torch.ops import block_knn as tk
+    args = [a[k] for k in ("src_blocks", "tgt", "poses", "qid", "tid",
+                           "pid", "lane_mask", "index_bits", "scale",
+                           "clamp")]
+    state = graphs.State()
+    g = graphs.Graphs(f"K1 {name}", state, {
+        "k1": lambda: state.put("keys", tk.block_knn_keys(*args))},
+        args[0].device)
+    state.keys.fill_(0)
+    before = tk.block_knn_keys.launches
+    g("k1")
+    torch.cuda.synchronize()
+    counted = tk.block_knn_keys.launches - before
+    ref = tk.block_knn_keys(*args, plain=True)
+    row = {"phase": "k1_graph_check", "shape": name,
+           "keys": int(ref.numel()),
+           "mismatches": int((state.keys != ref).sum()),
+           "launches_per_replay": counted, "capture_s": g.seconds}
+    emit(row)
+    if row["mismatches"] or counted != 1:
+        raise RuntimeError(f"K1 in a CUDA graph failed: {row}")
+
+
+# --------------------------------------------------------------------------
+# the compiled loops as CUDA graphs against their eager runs
+# --------------------------------------------------------------------------
+
+EAGER_CHECK_FRAMES = 16
+EAGER_CHECK_ROUNDS = 3
+
+
+def rotation_diff_rad(R_a, R_b):
+    """Angle of R_a^T R_b per leading index (float64, exact near 0)."""
+    M = R_a.double().transpose(-1, -2) @ R_b.double()
+    A = (M - M.transpose(-1, -2)) / 2.0
+    s = torch.stack([A[..., 2, 1], A[..., 0, 2], A[..., 1, 0]], -1).norm(
+        dim=-1)
+    return torch.arcsin(torch.clamp(s, max=1.0))
+
+
+def bit_equal(a, b):
+    """Every tensor field of two results equal, NaN where the other is."""
+    for x, y in zip(a, b):
+        if not isinstance(x, torch.Tensor):
+            if not bit_equal(x, y):
+                return False
+            continue
+        if x.dtype.is_floating_point:
+            if not torch.equal(x.isnan(), y.isnan()):
+                return False
+            x, y = x.nan_to_num(0.0), y.nan_to_num(0.0)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def graph_pools_mib():
+    """Device memory the captured graphs' private pools hold (the caching
+    allocator's segments outside the default pool), MiB: what a graphed
+    run keeps between calls, not counted in its peak above the memory
+    allocated before it."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) \
+        / 2 ** 20
+
+
+def measured(fn):
+    """(result, seconds, peak device MiB above what was allocated before,
+    peak MiB in all) of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, seconds = wall(fn)
+    peak = torch.cuda.max_memory_allocated()
+    return out, seconds, (peak - base) / 2 ** 20, peak / 2 ** 20
+
+
+def eager_vs_graphed(run, name):
+    """``run(graph)`` of the localization loop eagerly (graph=False) and
+    as graph replays, in alternating order over EAGER_CHECK_ROUNDS rounds:
+    ms per frame and peak memory of each run; gated on equal iterations
+    per frame and poses within 1e-6 m and 1e-6 rad; bit-equality of every
+    output reported."""
+    rows, first = [], {}
+    for r in range(EAGER_CHECK_ROUNDS):
+        for graph in ((False, None) if r % 2 == 0 else (None, False)):
+            mode = "eager" if graph is False else "graphed"
+            res, sec, peak, total = measured(lambda: run(graph))
+            n = res.poses.shape[0]
+            rows.append({"round": r, "mode": mode,
+                         "ms_per_frame": sec / n * 1e3,
+                         "iters_per_frame": float(
+                             res.iterations.float().mean()),
+                         "peak_mib": peak, "peak_total_mib": total})
+            if mode in first:
+                rows[-1]["bit_equal_to_round_0"] = bit_equal(first[mode],
+                                                             res)
+            first.setdefault(mode, res)
+    e, g = first["eager"], first["graphed"]
+    row = {"phase": name, "frames": int(e.poses.shape[0]), "runs": rows,
+           "same_iterations": bool(torch.equal(e.iterations, g.iterations)),
+           "pose_max_diff_m": float((e.poses[:, :3, 3].double()
+                                     - g.poses[:, :3, 3].double()).norm(
+                                         dim=1).max()),
+           "rot_max_diff_rad": float(rotation_diff_rad(
+               e.poses[:, :3, :3], g.poses[:, :3, :3]).max()),
+           "bit_equal": bit_equal(e, g),
+           "graph_pools_mib": graph_pools_mib()}
+    if not (row["same_iterations"] and row["pose_max_diff_m"] <= 1e-6
+            and row["rot_max_diff_rad"] <= 1e-6):
+        raise RuntimeError(f"graphed loop differs from the eager one: "
+                           f"{row}")
+    return row
+
+
+def batch_against_eager(out, run):
+    """One eager rerun (``run(graph=False)``) of a graphed batch ``out``:
+    per-lane iterations equal, the largest pose difference, bit-equality,
+    and peak memory of the eager run and of one more graphed run."""
+    ref, sec, peak_e, total_e = measured(lambda: run(graph=False))
+    _, sec_g, peak_g, total_g = measured(run)
+    return {"eager_seconds": sec, "graphed_seconds_rerun": sec_g,
+            "eager_same_iterations": bool(torch.equal(out.iterations,
+                                                      ref.iterations)),
+            "eager_pose_max_diff": max(float((out.R - ref.R).abs().max()),
+                                       float((out.t - ref.t).abs().max())),
+            "eager_bit_equal": bit_equal(out, ref),
+            "eager_peak_mib": peak_e, "eager_peak_total_mib": total_e,
+            "graphed_peak_mib": peak_g, "graphed_peak_total_mib": total_g,
+            "graph_pools_mib": graph_pools_mib()}
+
+
+def stale_cache_check(run_odom, res, world, device):
+    """A second MapIndex over the same map shifted by +1 m in x: the same
+    shapes, so only the storage the graphs read in place tells the two
+    apart.  Frame 0 seeded as phase 2 seeds it, shifted the same way,
+    must land on phase 2's frame 0 shifted by 1 m, within 1 cm and 1e-3
+    rad (the shifted map rounds differently; a stale replay would read
+    the first map and miss by 1 m); the first map again must replay its
+    own graphs and give phase 2's frame 0 bit for bit."""
+    from dcreg_tpu_torch import graphs
+    from dcreg_tpu_torch.ops.block_sparse import build_map_index
+    t0 = time.perf_counter()
+    shift = np.array([1.0, 0.0, 0.0])
+    world2 = world + shift.astype(np.float32)
+    mindex2 = build_map_index(world2, tb=128, sb=64, device=device)
+    world2_t = torch.as_tensor(world2, device=device)
+    build_s = time.perf_counter() - t0
+    captures = graphs.CACHE.captures
+    moved = run_odom(1, mi=mindex2, wt=world2_t, shift=shift)
+    new_captures = graphs.CACHE.captures - captures
+    again = run_odom(1)
+    p0 = res.poses[0].double()
+    p1 = moved.poses[0].double()
+    row = {"phase": "stale_cache_check", "shift_m": shift.tolist(),
+           "index_build_s": build_s, "new_captures": new_captures,
+           "t_diff_m": float((p1[:3, 3] - p0[:3, 3] - torch.as_tensor(
+               shift, device=p0.device)).norm()),
+           "rot_diff_rad": float(rotation_diff_rad(p0[:3, :3],
+                                                   p1[:3, :3])),
+           "iterations": [int(res.iterations[0]), int(moved.iterations[0])],
+           "first_map_again_bit_equal": bool(torch.equal(again.poses[0],
+                                                         res.poses[0])),
+           "seconds": time.perf_counter() - t0}
+    del mindex2, world2_t
+    if not ((device == "cpu" or new_captures == 1)
+            and row["t_diff_m"] < 1e-2 and row["rot_diff_rad"] < 1e-3
+            and row["first_map_again_bit_equal"]):
+        raise RuntimeError(f"stale-cache check failed: {row}")
     return row
 
 
@@ -1725,6 +1931,7 @@ def run(seed: int, device: str = "cuda"):
                                                   icp_batch_so3)
     from dcreg_tpu_torch.models.odometry import (
         estimate_odometry_capacities, prepare_frames, run_odometry_map)
+    from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.ops import block_knn as tk
     from dcreg_tpu_torch.ops.block_sparse import (build_block_index,
                                                   build_map_index,
@@ -1811,26 +2018,41 @@ def run(seed: int, device: str = "cuda"):
     }
     rows["f_map_B1_long_run"] = check_k1("f_map_B1_long_run",
                                          long_run_inputs(a_inputs, G))
+    check_k1_graph("a_map_B1_slotted_nomask", a_inputs)
 
     params = ICPParams()
     launches = {}
 
-    # ---- 2. the localization loop -----------------------------------------
-    def run_odom():
+    # ---- 2. the localization loop, replayed as CUDA graphs ---------------
+    def run_odom(n=FRAMES, graph=None, mi=mindex, wt=world_t, shift=None):
+        T0, Tp = T_pre1.copy(), T_pre2.copy()
+        if shift is not None:
+            T0[:3, 3] += shift
+            Tp[:3, 3] += shift
         return run_odometry_map(
-            frames_s, mindex, world_t, T0=T_pre1, T_prev_init=T_pre2,
+            frames_s[:n], mi, wt, T0=T0, T_prev_init=Tp,
             icp_params=params, num_supers=S, max_per_query=G, num_pairs=P,
             initial_cull_radius=R_CULL0, reuse_margin=REUSE_MARGIN,
-            device=device)
+            device=device, graph=graph)
 
+    cap0 = (graphs.CACHE.captures, graphs.CACHE.capture_seconds)
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
     _, warm_s = wall(run_odom)
+    capture_s = graphs.CACHE.capture_seconds - cap0[1]
+    held_mib = [(torch.cuda.memory_allocated() - mem0[0]) / 2 ** 20,
+                (torch.cuda.memory_reserved() - mem0[1]) / 2 ** 20]
     tk.block_knn_keys.launches = 0
     res, dt = wall(run_odom)
     launches["odometry"] = tk.block_knn_keys.launches
     est = res.poses.cpu().numpy()
     te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
-    odom = {"phase": "odometry", "frames": FRAMES,
+    odom = {"phase": "odometry", "frames": FRAMES, "graphed": True,
             "ms_per_frame": dt / FRAMES * 1e3, "warm_run_s": warm_s,
+            "graph_captures": graphs.CACHE.captures - cap0[0],
+            "graph_capture_s": capture_s,
+            "held_after_capture_mib": {"allocated": held_mib[0],
+                                       "reserved": held_mib[1]},
+            "graph_pools_mib": graph_pools_mib(),
             "iters_per_frame": float(res.iterations.float().mean()),
             "te_mean_m": float(te.mean()), "te_max_m": float(te.max()),
             "converged_frac": float(res.converged.float().mean()),
@@ -1841,65 +2063,96 @@ def run(seed: int, device: str = "cuda"):
     if not (bool(res.converged.all()) and odom["ovf_max"] == 0
             and te.mean() < 0.05 and te.max() < 0.10):
         raise RuntimeError(f"odometry gates failed: {odom}")
-    emit(profile_window("odometry_profile", lambda: run_odometry_map(
-        frames_s[:PROFILE_FRAMES], mindex, world_t, T0=T_pre1,
-        T_prev_init=T_pre2, icp_params=params, num_supers=S,
-        max_per_query=G, num_pairs=P, initial_cull_radius=R_CULL0,
-        reuse_margin=REUSE_MARGIN, device=device)))
+    emit(eager_vs_graphed(lambda graph: run_odom(EAGER_CHECK_FRAMES, graph),
+                          "odometry_eager_vs_graphed"))
+    emit(stale_cache_check(run_odom, res, world, device))
+    for graph in (None, False):
+        held = {}
+
+        def window():
+            held["res"] = run_odom(PROFILE_FRAMES, graph)
+
+        prof = profile_window("odometry_profile" if graph is None
+                              else "odometry_profile_eager", window)
+        trips = int(held["res"].iterations.sum())
+        calls = prof["host_launch_calls"]
+        kernel_calls = sum(calls.get(k, {}).get("count", 0)
+                           for k in LAUNCH_CALLS if k != "cudaGraphLaunch")
+        prof.update(icp_iterations=trips,
+                    kernels_per_icp_iteration=prof["kernel_launches"] / trips,
+                    launch_calls_per_icp_iteration=kernel_calls / trips,
+                    graph_launches=calls.get("cudaGraphLaunch",
+                                             {}).get("count", 0))
+        emit(prof)
+        if graph is None and device != "cpu" and not (
+                prof["graph_launches"] > 0 and kernel_calls / trips < 50):
+            raise RuntimeError(f"the graphed loop's profile does not show "
+                               f"graph replay: {prof}")
 
     # ---- 3. Monte-Carlo batch, map mode, full telemetry ------------------
-    def mc():
+    def mc(graph=None):
         return icp_batch_so3(frames_s[0], world_t, R0s, t0s, DET, HAND,
                              params, mindex, P2, T_gt=gt[0], num_supers=S2,
                              max_per_query=G2, initial_cull_radius=MC_CULL0,
-                             device=device)
+                             device=device, graph=graph)
 
     wall(mc)
     tk.block_knn_keys.launches = 0
     out, dt = wall(mc)
     launches["mc_map"] = tk.block_knn_keys.launches
+    eager = batch_against_eager(out, mc)
     last = (out.iterations.long() - 1).clamp(min=0)
     lane = torch.arange(BATCH, device=last.device)
     te = out.log.trans_error[lane, last].cpu().numpy()
     re = out.log.rot_error_deg[lane, last].cpu().numpy()
-    row = {"phase": "mc_map", "B": BATCH, "reg_per_s": BATCH / dt,
+    row = {"phase": "mc_map", "B": BATCH, "graphed": True,
+           "reg_per_s": BATCH / dt,
            "seconds": dt, "iters_mean": float(out.iterations.float().mean()),
            "te_mean_m": float(te.mean()), "re_mean_deg": float(re.mean()),
            "converged_frac": float(out.converged.float().mean()),
            "pair_overflow": int(out.pair_overflow),
-           "k1_launches": launches["mc_map"]}
+           "k1_launches": launches["mc_map"], **eager}
     emit(row)
     if not (bool(out.converged.all()) and row["pair_overflow"] == 0
-            and te.mean() < 0.05 and re.mean() < 0.5):
+            and te.mean() < 0.05 and re.mean() < 0.5
+            and eager["eager_same_iterations"]
+            and eager["eager_pose_max_diff"] <= 1e-5):
         raise RuntimeError(f"map-mode batch gates failed: {row}")
     emit(profile_window("mc_map_profile", mc))
 
-    # ---- 4. BlockIndex batch, then the same with the plain K1 ------------
-    def blk_run(plain=False):
-        return icp_batch_so3(blk, blk, R0b, t0b, DET, HAND, params, bindex,
-                             Pb, device=device, plain_knn=plain)
+    # ---- 4. BlockIndex batch, then eagerly, then with the plain K1 -------
+    blk_t = torch.as_tensor(blk, device=device)
+
+    def blk_run(plain=False, graph=None):
+        return icp_batch_so3(blk_t, blk_t, R0b, t0b, DET, HAND, params,
+                             bindex, Pb, device=device, plain_knn=plain,
+                             graph=graph)
 
     wall(blk_run)
     tk.block_knn_keys.launches = 0
     out, dt = wall(blk_run)
     launches["mc_block"] = tk.block_knn_keys.launches
+    eager = batch_against_eager(out, blk_run)
     ref = blk_run(plain=True)
     last = (out.iterations.long() - 1).clamp(min=0)
     te = out.log.trans_error[lane, last].cpu().numpy()
     same_iters = bool(torch.equal(out.iterations, ref.iterations))
     pose_diff = max(float((out.R - ref.R).abs().max()),
                     float((out.t - ref.t).abs().max()))
-    row = {"phase": "mc_block", "B": BATCH, "reg_per_s": BATCH / dt,
+    row = {"phase": "mc_block", "B": BATCH, "graphed": True,
+           "reg_per_s": BATCH / dt,
            "seconds": dt, "iters_mean": float(out.iterations.float().mean()),
            "te_mean_m": float(te.mean()),
            "converged_frac": float(out.converged.float().mean()),
            "pair_overflow": int(out.pair_overflow),
            "plain_same_iterations": same_iters,
            "plain_pose_max_diff": pose_diff,
-           "k1_launches": launches["mc_block"]}
+           "k1_launches": launches["mc_block"], **eager}
     emit(row)
     if not (bool(out.converged.all()) and row["pair_overflow"] == 0
-            and same_iters and pose_diff <= 1e-5):
+            and same_iters and pose_diff <= 1e-5
+            and eager["eager_same_iterations"]
+            and eager["eager_pose_max_diff"] <= 1e-5):
         raise RuntimeError(f"BlockIndex batch gates failed: {row}")
 
     # ---- K1's entry of the kernels line (phase 7) -------------------------
@@ -1972,6 +2225,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    from dcreg_tpu_torch import graphs
     build_kernels()
     ctx, k1 = run(args.seed)
     k2, k3 = run_pair(args.seed)
@@ -1989,6 +2243,9 @@ def main():
                     ("map_baselines", run_map_baselines(ctx))):
         k1["launches"] += n
         k1["launches_by_path"][path] = n
+    emit({"phase": "graphs", "captures": graphs.CACHE.captures,
+          "capture_s": graphs.CACHE.capture_seconds,
+          "cached": len(graphs.CACHE), "pools_mib": graph_pools_mib()})
     emit({"kernels": [k1, k2, k3]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,12 @@
 Per iteration ONE pair list is built from the union of every lane's
 relevant (query block, target block) interactions and ONE K1 call answers
 all lanes' 5-NN queries; the SoA tail, Schur analysis, PCG solve and
-boxplus run batched over lanes.  The JAX ``while_loop`` with per-lane
-freeze is a Python loop here: it syncs with the host once per iteration on
-``all(converged | aborted)``, and each lane freezes under the same rule,
-so per-lane iteration counts are the JAX engine's.
+boxplus run batched over lanes.  The JAX ``jit`` over a ``while_loop``
+with per-lane freeze is a prologue, a step and an epilogue over fixed
+state tensors (``BatchLoop``), captured as CUDA graphs on the card and
+replayed (``graphs``); the host reads the done flag
+``all(converged | aborted)`` once per step, and each lane freezes under
+the JAX rule, so per-lane iteration counts are the JAX engine's.
 
 Requirements as in the JAX module: source/target spatially sorted, the
 index built with tb = 128 over the sorted target, f32.
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..ops import se3
 from ..ops.block_knn import (QB, batched_block_knn, exact_qbox,
                              hier_relevance, lane_relevance, make_pair_list,
@@ -29,8 +32,8 @@ from ..ops.degeneracy import DetectionMethod, HandlingMethod, analyze
 from ..ops.soa_tail import batched_tail_system
 from ..ops.solvers import solve
 from ..utils import check_precise, resolve_device
-from .icp import (ICPParams, _empty_log, covariance_from_H, empty_hist,
-                  telemetry_row)
+from .icp import (Hist, ICPParams, IterationLog, _empty_log,
+                  covariance_from_H, empty_hist, telemetry_row)
 
 
 class BatchICPResult(NamedTuple):
@@ -54,12 +57,337 @@ def _index_device(index):
     return bi.blocks.device
 
 
+class BatchLoop:
+    """One configuration of ``icp_batch_so3`` split into the parts of its
+    compiled loop, each reading and writing a ``graphs.State`` in place:
+
+      * ``load`` copies the per-call inputs into the state: source
+        ``src``, ``R0``, ``t0``, ``T_gt``;
+      * ``prologue`` the static query-block prep, in reuse mode the cull
+        and the pair list at the initial pose, and the loop state;
+      * ``step`` one iteration for every lane still active (``iterate``)
+        and the state update, writing the history at the device-side
+        iteration counter ``it`` and setting the ``done`` flag the host
+        reads once per step;
+      * ``epilogue`` the reuse guard, ``H_last``, and the telemetry pass
+        or the covariance.
+
+    ``key()`` holds every static the parts bake in, and the address and
+    layout of the tensors they read in place (the index and the target).
+    """
+
+    def __init__(self, index, target_xyz, B: int, N: int,
+                 detection: DetectionMethod, handling: HandlingMethod,
+                 params: ICPParams, num_pairs: int, num_supers: int,
+                 max_per_query: int, initial_cull_radius, reuse_pair_list,
+                 device, plain_knn: bool = False):
+        self.map_mode = isinstance(index, MapIndex)
+        if self.map_mode and (num_supers <= 0 or max_per_query <= 0):
+            raise ValueError("map mode needs num_supers and max_per_query")
+        self.index, self.target = index, target_xyz
+        self.mindex = index if self.map_mode else None
+        self.bi = index.block if self.map_mode else index
+        self.B, self.N, self.nq = B, N, -(-N // QB)
+        self.detection, self.handling, self.params = detection, handling, \
+            params
+        self.num_pairs, self.num_supers = num_pairs, num_supers
+        self.max_per_query = max_per_query
+        self.reuse_pair_list = float(reuse_pair_list)
+        self.reuse = self.map_mode and self.reuse_pair_list > 0 and B == 1
+        self.radius = params.corr.search_radius
+        self.r0 = float(self.radius if initial_cull_radius is None
+                        else initial_cull_radius)
+        self.fast = (detection is DetectionMethod.SCHUR_CONDITION_NUMBER and
+                     handling is HandlingMethod.PRECONDITIONED_CG)
+        self.dev, self.dtype = device, torch.float32
+        self.plain_knn = plain_knn
+
+    def key(self) -> tuple:
+        mode = "reuse" if self.reuse else "map" if self.map_mode else "block"
+        return ("icp_batch_so3", mode, self.B, self.N, self.nq,
+                self.num_pairs, self.num_supers, self.max_per_query,
+                self.detection, self.handling, self.params, self.r0,
+                self.reuse_pair_list, str(self.dtype), str(self.dev),
+                graphs.tensor_key(self.index, self.target))
+
+    def load(self, S, source_xyz, R0s, t0s, T_gt) -> None:
+        S.put("src", source_xyz)
+        S.put("R0", R0s)
+        S.put("t0", t0s)
+        S.put("T_gt", T_gt)
+
+    def prologue(self, S) -> None:
+        B, N, nq, dev, dtype = self.B, self.N, self.nq, self.dev, self.dtype
+        f32 = lambda v: torch.full((), v, dtype=dtype, device=dev)
+        src = S.src
+        # ---- static query-block prep (body frame) ------------------------
+        src_pad = torch.cat([src, src[-1:].expand(nq * QB - N, 3)])
+        src_q = src_pad.reshape(nq, QB, 3)
+        S.put("src_q", src_q)
+        S.put("src_blocks", src_q.transpose(1, 2).contiguous())  # (nq,3,QB)
+        S.put("slo", torch.amin(src_q, dim=1))
+        S.put("shi", torch.amax(src_q, dim=1))
+        # a source point moves at most |dw| * pmax + |dv| per iteration
+        S.put("pmax", torch.sqrt(torch.amax(torch.sum(src * src, dim=1))))
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ovf = zero
+        if self.reuse:
+            bi, mindex = self.bi, self.mindex
+            r_list = f32(self.r0) + f32(self.reuse_pair_list)
+            qbox0 = exact_qbox(S.src_q, S.R0, S.t0)
+            sup_sel0, sup_ok0, sup_ovf0 = super_candidates(
+                S.slo, S.shi, S.R0, S.t0, mindex, r_list, self.num_supers,
+                qbox=qbox0)
+            rel_l0, block_ids0 = hier_relevance(
+                S.slo, S.shi, S.R0, S.t0, mindex, sup_sel0, sup_ok0, r_list,
+                qbox=qbox0)
+            rel0 = torch.any(rel_l0, dim=0)
+            qid0, tid0, slot0, _, table0, ovf0, run_ovf0 = \
+                make_pair_list_slotted(rel0, self.num_pairs,
+                                       self.max_per_query,
+                                       block_ids=block_ids0,
+                                       nbt=bi.num_blocks)
+            ovf = ovf0 + run_ovf0 + sup_ovf0
+            S.put("qid0", qid0)
+            S.put("tid0", tid0)
+            S.put("slot0", slot0)
+            S.put("table0", table0)
+            S.put("covered0", torch.any(rel0, dim=1))
+            # static per-pair target bboxes for the per-iteration LIVE mask
+            pad0 = qid0 >= nq
+            tid_safe0 = torch.where(pad0, 0, tid0).long()
+            S.put("pad0", pad0)
+            S.put("p_tlo0", torch.where(pad0[:, None], 3e38,
+                                        bi.lo[tid_safe0]))
+            S.put("p_thi0", torch.where(pad0[:, None], -3e38,
+                                        bi.hi[tid_safe0]))
+            S.put("qid_safe0", torch.where(pad0, 0, qid0).long())
+        # ---- the loop state ----------------------------------------------
+        I = self.params.max_iterations
+        S.put("Rs", S.R0)
+        S.put("ts", S.t0)
+        S.put("conv", torch.zeros(B, dtype=torch.bool, device=dev))
+        S.put("abt", torch.zeros(B, dtype=torch.bool, device=dev))
+        S.put("iters", torch.zeros(B, dtype=torch.int32, device=dev))
+        S.put_tuple("hist", empty_hist(I, dtype, lead=(B,), device=dev))
+        S.put("ovf", ovf)
+        S.put("r_cull", torch.full((B, nq), self.r0, dtype=dtype,
+                                   device=dev))
+        S.put("cum_move", torch.zeros(B, dtype=dtype, device=dev))
+        S.put("it", zero)
+        S.put("done", torch.zeros((), dtype=torch.bool, device=dev))
+
+    def iterate(self, S, Rs, ts, r_cull, active):
+        """One ICP iteration of every lane at (Rs, ts): (system, dx,
+        abort_now, overflow, d5bm)."""
+        B, nq, N, bi = self.B, self.nq, self.N, self.bi
+        params, radius = self.params, self.radius
+        knn_kwargs = {}
+        if self.reuse:
+            qid, tid = S.qid0, S.tid0
+            overflow = torch.zeros((), dtype=torch.int64, device=self.dev)
+            covered = S.covered0
+            knn_kwargs = dict(slot=S.slot0, tid_table=S.table0,
+                              max_per_query=self.max_per_query)
+            # live mask: pairs within this iteration's exact radius
+            qlo_b, qhi_b = exact_qbox(S.src_q, Rs, ts)
+            qlo, qhi = qlo_b[0], qhi_b[0]
+            qs = S.qid_safe0
+            gap = torch.clamp(torch.maximum(qlo[qs] - S.p_thi0,
+                                            S.p_tlo0 - qhi[qs]), min=0.0)
+            d2p = torch.sum(gap * gap, dim=-1)
+            rq = r_cull[0, qs]
+            live = (d2p <= rq * rq) & ~S.pad0
+            lmask = live.to(torch.int32)[:, None]
+        elif self.map_mode:
+            mindex = self.mindex
+            qbox_i = exact_qbox(S.src_q, Rs, ts)
+            sup_sel, sup_ok, sup_ovf = super_candidates(
+                S.slo, S.shi, Rs, ts, mindex, r_cull, self.num_supers,
+                active=active, qbox=qbox_i)
+            rel_l, block_ids = hier_relevance(S.slo, S.shi, Rs, ts, mindex,
+                                              sup_sel, sup_ok, r_cull,
+                                              qbox=qbox_i)
+            rel_l = rel_l & active[:, None, None]
+            rel = torch.any(rel_l, dim=0)
+            qid, tid, slot, col, table, ovf, run_ovf = \
+                make_pair_list_slotted(rel, self.num_pairs,
+                                       self.max_per_query,
+                                       block_ids=block_ids,
+                                       nbt=bi.num_blocks)
+            overflow = ovf + run_ovf + sup_ovf
+            lmask = pack_lane_mask(rel_l, qid, col) if B > 1 else None
+            covered = torch.any(rel, dim=1)
+            knn_kwargs = dict(slot=slot, tid_table=table,
+                              max_per_query=self.max_per_query)
+        else:
+            rel_l = lane_relevance(S.slo, S.shi, Rs, ts, bi.lo, bi.hi,
+                                   r_cull, per_lane=True,
+                                   qbox=exact_qbox(S.src_q, Rs, ts))
+            rel_l = rel_l & active[:, None, None]
+            rel = torch.any(rel_l, dim=0)
+            qid, tid, overflow = make_pair_list(rel, self.num_pairs)
+            lmask = pack_lane_mask(rel_l, qid, tid) if B > 1 else None
+            covered = torch.any(rel, dim=1)
+        poses12 = torch.cat([Rs.reshape(B, 9), ts], dim=1)
+        vals, idx = batched_block_knn(bi, S.src_blocks, poses12, qid, tid,
+                                      radius=radius, covered=covered,
+                                      lane_mask=lmask, layout="kn",
+                                      plain=self.plain_knn, **knn_kwargs)
+        # exact 5th-NN distance per (lane, query block); BIG where a
+        # block was uncovered -> the next radius falls back to the full one
+        k = params.corr.k
+        d5row = vals[:, k - 1, :]
+        d5bm = torch.sqrt(torch.amax(d5row.reshape(B, nq, QB), dim=2))
+        sysm = batched_tail_system(
+            S.src, self.target, Rs, ts, sq_d5=d5row[:, :N],
+            idx_kn=idx[:, :k, :N], params=params.corr,
+            use_weight_derivative=params.use_weight_derivative,
+            weight_slope=params.corr.weight_slope)
+        analysis = analyze(sysm.H, self.detection, params.thresholds,
+                           fast=self.fast)
+        dx, _ = solve(sysm.H, sysm.g, self.handling, analysis,
+                      params.thresholds, telemetry=False, fast=self.fast)
+        too_few = sysm.num_valid < params.min_effective_points
+        bad_dx = ~torch.all(torch.isfinite(dx), dim=-1)
+        abort_now = too_few | bad_dx
+        dx = torch.where(abort_now[:, None], 0.0, dx)
+        return sysm, dx, abort_now, overflow, d5bm
+
+    def step(self, S) -> None:
+        B, params = self.B, self.params
+        I = params.max_iterations
+        Rs, ts, conv, abt = S.Rs, S.ts, S.conv, S.abt
+        active = ~(conv | abt)
+        sysm, dx, abort_now, overflow, d5bm = self.iterate(
+            S, Rs, ts, S.r_cull, active)
+        abort_now = abort_now & active
+        # history column ``it`` of each active lane
+        col = (torch.arange(I, device=self.dev) == S.it)[None, :] \
+            & active[:, None]
+        hist = S.get_tuple("hist", Hist)
+
+        def put(name, val):
+            dst = getattr(hist, name)
+            sel = col.reshape(col.shape + (1,) * (val.ndim - 1))
+            S.put(f"hist.{name}", torch.where(sel, val[:, None], dst))
+
+        put("H", sysm.H)
+        put("rmse", sysm.rmse)
+        put("fitness", sysm.fitness)
+        put("num_valid", sysm.num_valid.to(torch.int32))
+        if params.full_telemetry:
+            put("R", Rs)
+            put("t", ts)
+            put("g", sysm.g)
+            put("dx", dx)
+            put("objective", sysm.objective)
+        Rn, tn = se3.boxplus(Rs, ts, dx)
+        upd = active & ~abort_now
+        n_rot = torch.linalg.norm(dx[:, :3], dim=1)
+        n_trans = torch.linalg.norm(dx[:, 3:], dim=1)
+        step_conv = (n_rot < params.convergence_thresh_rot) & \
+            (n_trans < params.convergence_thresh_trans) & ~abort_now
+        conv_new = conv | (active & step_conv)
+        abt_new = abt | abort_now
+        # next iteration's exact cull radius (motion bound slack +
+        # fixed-point quantisation of d5)
+        move = n_rot * S.pmax + n_trans
+        r_new = torch.clamp(d5bm + (1.05 * move + 0.01)[:, None],
+                            max=self.radius)
+        S.put("Rs", torch.where(upd[:, None, None], Rn, Rs))
+        S.put("ts", torch.where(upd[:, None], tn, ts))
+        S.put("iters", torch.where(active, S.it + 1, S.iters)
+              .to(torch.int32))
+        S.put("r_cull", torch.where(active[:, None], r_new, S.r_cull))
+        S.put("cum_move", S.cum_move + torch.where(active, move, 0.0))
+        S.put("ovf", torch.maximum(S.ovf, overflow))
+        S.put("conv", conv_new)
+        S.put("abt", abt_new)
+        S.put("it", S.it + 1)
+        S.put("done", torch.all(conv_new | abt_new))
+
+    def finish(self, S) -> None:
+        """The epilogue's first half: the reuse guard and each lane's
+        last-iteration H, rmse, fitness and num_valid."""
+        B = self.B
+        if self.reuse:
+            # the static list covers iteration k only while 2x the
+            # accumulated motion stays inside the margin
+            S.put("ovf", S.ovf + torch.sum(
+                (2.0 * S.cum_move > self.reuse_pair_list).to(torch.int64)))
+        last = torch.clamp(S.iters - 1, min=0).long()
+        lane_ix = torch.arange(B, device=self.dev)
+        hist = S.get_tuple("hist", Hist)
+        S.put("H_last", hist.H[lane_ix, last])
+        S.put("rmse", hist.rmse[lane_ix, last])
+        S.put("fitness", hist.fitness[lane_ix, last])
+        S.put("num_valid", hist.num_valid[lane_ix, last])
+
+    def epilogue(self, S) -> None:
+        self.finish(S)
+        # ---- pass 2: telemetry reconstruction, batched over (B, I) -------
+        B, dev, dtype, params = self.B, self.dev, self.dtype, self.params
+        I = params.max_iterations
+        hist, H_last = S.get_tuple("hist", Hist), S.H_last
+        if params.full_telemetry:
+            executed = torch.arange(I, device=dev)[None, :] \
+                < S.iters[:, None]
+            S.put_tuple("log", telemetry_row(
+                hist, executed, self.detection, self.handling,
+                params.thresholds, params.min_effective_points, S.T_gt))
+            S.put("cov", covariance_from_H(H_last, S.conv, dtype))
+        else:
+            S.put_tuple("log", _empty_log(I, dtype, lead=(B,), device=dev))
+            eye6 = torch.eye(6, dtype=dtype, device=dev)
+            inv, info = torch.linalg.solve_ex(H_last, eye6.expand(B, 6, 6))
+            ok = S.conv & (info == 0) & torch.all(torch.isfinite(inv),
+                                                  dim=(1, 2))
+            S.put("cov", torch.where(ok[:, None, None], inv, 1e6 * eye6))
+
+    def parts(self, S) -> dict:
+        return {"prologue": lambda: self.prologue(S),
+                "step": lambda: self.step(S),
+                "epilogue": lambda: self.epilogue(S)}
+
+    def result(self, S) -> BatchICPResult:
+        return BatchICPResult(R=S.Rs, t=S.ts, converged=S.conv,
+                              aborted=S.abt, iterations=S.iters,
+                              covariance=S.cov,
+                              log=S.get_tuple("log", IterationLog),
+                              pair_overflow=S.ovf, H_last=S.H_last,
+                              rmse=S.rmse, fitness=S.fitness,
+                              num_valid=S.num_valid)
+
+
+def drive(run, S, max_iterations: int) -> None:
+    """The compiled loop: the prologue, steps until every lane converged
+    or aborted (one host read of the done flag per step, as the JAX
+    ``while_loop``'s condition) or the iterations run out, the epilogue.
+    ``run(name)`` runs or replays a part."""
+    run("prologue")
+    for it in range(max_iterations):
+        if it and bool(S.done):                   # one host sync per trip
+            break
+        run("step")
+    run("epilogue")
+
+
+def _detached(tree):
+    """Fresh copies of a result's tensors: a graph's state is overwritten
+    by its next call."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_detached(v) for v in tree))
+
+
 def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
                   detection: DetectionMethod, handling: HandlingMethod,
                   params: ICPParams, index, num_pairs: int, T_gt=None,
                   num_supers: int = 0, max_per_query: int = 0,
                   initial_cull_radius=None, reuse_pair_list: float = 0.0,
-                  device=None, plain_knn: bool = False) -> BatchICPResult:
+                  device=None, plain_knn: bool = False,
+                  graph=None) -> BatchICPResult:
     """Run B registrations of one (source, target) pair to convergence.
 
     source_xyz (N, 3) sorted body-frame points; target_xyz (M, 3) the same
@@ -75,218 +403,43 @@ def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
     breach of the motion guard is added to ``pair_overflow``.
 
     Runs on ``device`` (cuda unless told otherwise; the index must live
-    there).  ``plain_knn=True`` runs K1's plain PyTorch twin instead of
-    the kernel -- for checking the kernel against it on the card only.
+    there).  On the card the loop's parts (``BatchLoop``) run as CUDA
+    graphs, captured at the first call of their statics and replayed
+    after (``graphs.CACHE``); ``graph=False`` runs them eagerly, for
+    checking only; on the CPU they run eagerly and ``graph=True`` raises.
+    ``plain_knn=True`` runs K1's plain PyTorch twin instead of the kernel
+    (eagerly, as it reads the host) -- for checking the kernel against it
+    on the card only.
     """
     check_precise()
     dev = resolve_device(device)
     if _index_device(index).type != dev.type:
         raise ValueError(f"index lives on {_index_device(index)}, engine "
                          f"runs on {dev}")
-    map_mode = isinstance(index, MapIndex)
-    mindex = index if map_mode else None
-    bi = index.block if map_mode else index
-    if map_mode and (num_supers <= 0 or max_per_query <= 0):
-        raise ValueError("map mode needs num_supers and max_per_query")
+    graphed = graphs.use_graphs(dev, graph, plain_knn)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     source_xyz, target_xyz = f32(source_xyz), f32(target_xyz)
     R0s, t0s = f32(R0s), f32(t0s)
-    dtype = torch.float32
-    B = R0s.shape[0]
-    reuse = map_mode and reuse_pair_list > 0 and B == 1
-    N = source_xyz.shape[0]
-    I = params.max_iterations
-    k = params.corr.k
-    radius = params.corr.search_radius
-    T_gt = torch.eye(4, dtype=dtype, device=dev) if T_gt is None \
+    T_gt = torch.eye(4, dtype=torch.float32, device=dev) if T_gt is None \
         else f32(T_gt)
-    fast = (detection is DetectionMethod.SCHUR_CONDITION_NUMBER and
-            handling is HandlingMethod.PRECONDITIONED_CG)
+    loop = BatchLoop(index, target_xyz, R0s.shape[0], source_xyz.shape[0],
+                     detection, handling, params, num_pairs, num_supers,
+                     max_per_query, initial_cull_radius, reuse_pair_list,
+                     dev, plain_knn=plain_knn)
 
-    # ---- static query-block prep (body frame) ----------------------------
-    nq = -(-N // QB)
-    src_pad = torch.cat([source_xyz,
-                         source_xyz[-1:].expand(nq * QB - N, 3)])
-    src_q = src_pad.reshape(nq, QB, 3)
-    src_blocks = src_q.transpose(1, 2).contiguous()          # (nq, 3, QB)
-    slo = torch.amin(src_q, dim=1)
-    shi = torch.amax(src_q, dim=1)
-    # a source point moves at most |dw| * pmax + |dv| per iteration
-    pmax = torch.sqrt(torch.amax(torch.sum(source_xyz * source_xyz, dim=1)))
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    def load(S):
+        loop.load(S, source_xyz, R0s, t0s, T_gt)
 
-    if reuse:
-        r0v = radius if initial_cull_radius is None else initial_cull_radius
-        r_list = f32(r0v) + f32(reuse_pair_list)
-        qbox0 = exact_qbox(src_q, R0s, t0s)
-        sup_sel0, sup_ok0, sup_ovf0 = super_candidates(
-            slo, shi, R0s, t0s, mindex, r_list, num_supers, qbox=qbox0)
-        rel_l0, block_ids0 = hier_relevance(
-            slo, shi, R0s, t0s, mindex, sup_sel0, sup_ok0, r_list,
-            qbox=qbox0)
-        rel0 = torch.any(rel_l0, dim=0)
-        qid0, tid0, slot0, col0, table0, ovf0, run_ovf0 = \
-            make_pair_list_slotted(rel0, num_pairs, max_per_query,
-                                   block_ids=block_ids0, nbt=bi.num_blocks)
-        static_overflow = ovf0 + run_ovf0 + sup_ovf0
-        covered0 = torch.any(rel0, dim=1)
-        # static per-pair target bboxes for the per-iteration LIVE mask
-        pad0 = qid0 >= nq
-        tid_safe0 = torch.where(pad0, 0, tid0).long()
-        p_tlo0 = torch.where(pad0[:, None], 3e38, bi.lo[tid_safe0])
-        p_thi0 = torch.where(pad0[:, None], -3e38, bi.hi[tid_safe0])
-        qid_safe0 = torch.where(pad0, 0, qid0).long()
-
-    def one_iteration(Rs, ts, r_cull, active):
-        knn_kwargs = {}
-        if reuse:
-            qid, tid = qid0, tid0
-            overflow = zero
-            covered = covered0
-            knn_kwargs = dict(slot=slot0, tid_table=table0,
-                              max_per_query=max_per_query)
-            # live mask: pairs within this iteration's exact radius
-            qlo_b, qhi_b = exact_qbox(src_q, Rs, ts)
-            qlo, qhi = qlo_b[0], qhi_b[0]
-            gap = torch.clamp(torch.maximum(qlo[qid_safe0] - p_thi0,
-                                            p_tlo0 - qhi[qid_safe0]),
-                              min=0.0)
-            d2p = torch.sum(gap * gap, dim=-1)
-            rq = r_cull[0, qid_safe0]
-            live = (d2p <= rq * rq) & ~pad0
-            lmask = live.to(torch.int32)[:, None]
-        elif map_mode:
-            qbox_i = exact_qbox(src_q, Rs, ts)
-            sup_sel, sup_ok, sup_ovf = super_candidates(
-                slo, shi, Rs, ts, mindex, r_cull, num_supers, active=active,
-                qbox=qbox_i)
-            rel_l, block_ids = hier_relevance(slo, shi, Rs, ts, mindex,
-                                              sup_sel, sup_ok, r_cull,
-                                              qbox=qbox_i)
-            rel_l = rel_l & active[:, None, None]
-            rel = torch.any(rel_l, dim=0)
-            qid, tid, slot, col, table, ovf, run_ovf = \
-                make_pair_list_slotted(rel, num_pairs, max_per_query,
-                                       block_ids=block_ids,
-                                       nbt=bi.num_blocks)
-            overflow = ovf + run_ovf + sup_ovf
-            lmask = pack_lane_mask(rel_l, qid, col) if B > 1 else None
-            covered = torch.any(rel, dim=1)
-            knn_kwargs = dict(slot=slot, tid_table=table,
-                              max_per_query=max_per_query)
-        else:
-            rel_l = lane_relevance(slo, shi, Rs, ts, bi.lo, bi.hi, r_cull,
-                                   per_lane=True,
-                                   qbox=exact_qbox(src_q, Rs, ts))
-            rel_l = rel_l & active[:, None, None]
-            rel = torch.any(rel_l, dim=0)
-            qid, tid, overflow = make_pair_list(rel, num_pairs)
-            lmask = pack_lane_mask(rel_l, qid, tid) if B > 1 else None
-            covered = torch.any(rel, dim=1)
-        poses12 = torch.cat([Rs.reshape(B, 9), ts], dim=1)
-        vals, idx = batched_block_knn(bi, src_blocks, poses12, qid, tid,
-                                      radius=radius, covered=covered,
-                                      lane_mask=lmask, layout="kn",
-                                      plain=plain_knn, **knn_kwargs)
-        # exact 5th-NN distance per (lane, query block); BIG where a
-        # block was uncovered -> the next radius falls back to the full one
-        d5row = vals[:, k - 1, :]
-        d5bm = torch.sqrt(torch.amax(d5row.reshape(B, nq, QB), dim=2))
-        sysm = batched_tail_system(
-            source_xyz, target_xyz, Rs, ts, sq_d5=d5row[:, :N],
-            idx_kn=idx[:, :k, :N], params=params.corr,
-            use_weight_derivative=params.use_weight_derivative,
-            weight_slope=params.corr.weight_slope)
-        analysis = analyze(sysm.H, detection, params.thresholds, fast=fast)
-        dx, _ = solve(sysm.H, sysm.g, handling, analysis, params.thresholds,
-                      telemetry=False, fast=fast)
-        too_few = sysm.num_valid < params.min_effective_points
-        bad_dx = ~torch.all(torch.isfinite(dx), dim=-1)
-        abort_now = too_few | bad_dx
-        dx = torch.where(abort_now[:, None], 0.0, dx)
-        return sysm, dx, abort_now, overflow, d5bm
-
-    # ---- pass 1: the joint optimisation loop -----------------------------
-    Rs, ts = R0s, t0s
-    conv = torch.zeros(B, dtype=torch.bool, device=dev)
-    abt = torch.zeros(B, dtype=torch.bool, device=dev)
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    # the history is preallocated and written in place, column by column
-    hist = empty_hist(I, dtype, lead=(B,), device=dev)
-    ovf = static_overflow if reuse else zero
-    r0 = radius if initial_cull_radius is None else initial_cull_radius
-    r_cull = torch.full((B, nq), float(r0), dtype=dtype, device=dev)
-    cum_move = torch.zeros(B, dtype=dtype, device=dev)
-    for it in range(I):
-        if bool(torch.all(conv | abt)):          # one host sync per trip
-            break
-        active = ~(conv | abt)
-        sysm, dx, abort_now, overflow, d5bm = one_iteration(
-            Rs, ts, r_cull, active)
-        abort_now = abort_now & active
-
-        def put(dst, val):
-            a = active.reshape((B,) + (1,) * (val.ndim - 1))
-            dst[:, it] = torch.where(a, val, dst[:, it])
-
-        put(hist.H, sysm.H)
-        put(hist.rmse, sysm.rmse)
-        put(hist.fitness, sysm.fitness)
-        put(hist.num_valid, sysm.num_valid.to(torch.int32))
-        if params.full_telemetry:
-            put(hist.R, Rs)
-            put(hist.t, ts)
-            put(hist.g, sysm.g)
-            put(hist.dx, dx)
-            put(hist.objective, sysm.objective)
-        Rn, tn = se3.boxplus(Rs, ts, dx)
-        upd = active & ~abort_now
-        Rs = torch.where(upd[:, None, None], Rn, Rs)
-        ts = torch.where(upd[:, None], tn, ts)
-        n_rot = torch.linalg.norm(dx[:, :3], dim=1)
-        n_trans = torch.linalg.norm(dx[:, 3:], dim=1)
-        step_conv = (n_rot < params.convergence_thresh_rot) & \
-            (n_trans < params.convergence_thresh_trans) & ~abort_now
-        conv = conv | (active & step_conv)
-        abt = abt | abort_now
-        iters = torch.where(active, it + 1, iters).to(torch.int32)
-        # next iteration's exact cull radius (motion bound slack +
-        # fixed-point quantisation of d5)
-        move = n_rot * pmax + n_trans
-        r_new = torch.clamp(d5bm + (1.05 * move + 0.01)[:, None],
-                            max=radius)
-        r_cull = torch.where(active[:, None], r_new, r_cull)
-        cum_move = cum_move + torch.where(active, move, 0.0)
-        ovf = torch.maximum(ovf, overflow)
-    if reuse:
-        # the static list covers iteration k only while 2x the accumulated
-        # motion stays inside the margin
-        ovf = ovf + torch.sum((2.0 * cum_move > reuse_pair_list)
-                              .to(torch.int64))
-
-    last = torch.clamp(iters - 1, min=0).long()
-    lane_ix = torch.arange(B, device=dev)
-    H_last = hist.H[lane_ix, last]
-
-    # ---- pass 2: telemetry reconstruction, batched over (B, I) -----------
-    if params.full_telemetry:
-        executed = torch.arange(I, device=dev)[None, :] < iters[:, None]
-        log = telemetry_row(hist, executed, detection, handling,
-                            params.thresholds, params.min_effective_points,
-                            T_gt)
-        cov = covariance_from_H(H_last, conv, dtype)
-    else:
-        log = _empty_log(I, dtype, lead=(B,), device=dev)
-        eye6 = torch.eye(6, dtype=dtype, device=dev)
-        inv, info = torch.linalg.solve_ex(H_last, eye6.expand(B, 6, 6))
-        ok = conv & (info == 0) & torch.all(torch.isfinite(inv), dim=(1, 2))
-        cov = torch.where(ok[:, None, None], inv, 1e6 * eye6)
-    return BatchICPResult(R=Rs, t=ts, converged=conv, aborted=abt,
-                          iterations=iters, covariance=cov, log=log,
-                          pair_overflow=ovf, H_last=H_last,
-                          rmse=hist.rmse[lane_ix, last],
-                          fitness=hist.fitness[lane_ix, last],
-                          num_valid=hist.num_valid[lane_ix, last])
+    if not graphed:
+        S = graphs.State()
+        load(S)
+        drive(graphs.run_eager(loop.parts(S)), S, params.max_iterations)
+        return loop.result(S)
+    entry = graphs.CACHE.lookup(
+        loop.key(), load,
+        lambda S: graphs.Graphs("icp_batch_so3", S, loop.parts(S), dev))
+    drive(entry, entry.state, params.max_iterations)
+    return _detached(loop.result(entry.state))
 
 
 def _host(x):

@@ -2,7 +2,8 @@
 
 Two loops share the frame chain, a constant-velocity motion-model seed
 projected back onto SO(3) every frame; the JAX ``lax.scan`` over frames
-is a Python loop here:
+is a Python loop here (for the map loop, over the replays of its frame's
+CUDA graphs on the card, ``MapLoop``):
 
   * ``run_odometry``, the voxel-grid loop: the map indexed once by
     ``build_voxel_grid``, and per frame a fixed-trip masked DCReg ICP
@@ -18,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..ops import se3
 from ..ops.block_sparse import kd_block_order
 from ..ops.correspondence import CorrespondenceParams, fit_planes
@@ -27,7 +29,7 @@ from ..ops.solvers import solve
 from ..ops.voxel_grid import VoxelGrid, build_voxel_grid, voxel_knn
 from ..utils import check_precise, resolve_device
 from .icp import ICPParams
-from .icp_batch import estimate_map_capacities, icp_batch_so3
+from .icp_batch import BatchLoop, drive, estimate_map_capacities
 
 
 class OdometryParams(NamedTuple):
@@ -220,37 +222,104 @@ class MapOdometryResult(NamedTuple):
     effective_points: torch.Tensor  # (F,) int32
 
 
+# the map loop's output rows are preallocated in blocks of this many
+# frames, so sequences of any length up to it share one capture
+ROW_BLOCK = 128
+
+
+class MapLoop:
+    """``run_odometry_map``'s frame as the parts of its compiled scan over
+    a ``graphs.State``: the ``prologue`` is the constant-velocity seed
+    from the previous two poses in the state and the registration's
+    prologue (``BatchLoop``, B = 1, reused pair list); the ``step`` is
+    the registration's; the ``epilogue`` finishes the registration, runs
+    the frame's analysis of ``H_last`` and writes the frame's output row
+    at the device-side frame index ``f`` of preallocated ``(rows, ...)``
+    tensors.  The host copies each frame's scan into the state's source
+    (``src``) before its prologue."""
+
+    def __init__(self, loop: BatchLoop, use_constant_velocity: bool,
+                 frame_analysis_fast: bool, rows: int):
+        self.loop, self.rows = loop, rows
+        self.cv = use_constant_velocity
+        self.fast = (frame_analysis_fast and loop.detection
+                     is DetectionMethod.SCHUR_CONDITION_NUMBER)
+
+    def key(self) -> tuple:
+        return ("run_odometry_map", self.loop.key(), self.cv, self.fast,
+                self.rows)
+
+    def load(self, S, frame0, T0, T_prev) -> None:
+        S.put("src", frame0)
+        S.put("R_prev", T0[:3, :3])
+        S.put("t_prev", T0[:3, 3])
+        S.put("R_prev2", T_prev[:3, :3])
+        S.put("t_prev2", T_prev[:3, 3])
+        S.put("T_gt", torch.eye(4, dtype=T0.dtype, device=T0.device))
+        S.put("f", torch.zeros((), dtype=torch.int64, device=T0.device))
+
+    def prologue(self, S) -> None:
+        R_pred, t_pred = _seed(S.R_prev, S.t_prev, S.R_prev2, S.t_prev2,
+                               self.cv)
+        S.put("R0", R_pred[None])
+        S.put("t0", t_pred[None])
+        self.loop.prologue(S)
+
+    def epilogue(self, S) -> None:
+        self.loop.finish(S)
+        R, t = S.Rs[0], S.ts[0]
+        ana = analyze(S.H_last[0], self.loop.detection,
+                      self.loop.params.thresholds, fast=self.fast)
+        row = (se3.se3_matrix(R, t), S.iters[0], S.conv[0], S.abt[0],
+               S.ovf.to(torch.int32), ana.is_degenerate,
+               ana.degenerate_mask, ana.cond_schur_rot,
+               ana.cond_schur_trans, ana.cond_full, S.rmse[0],
+               S.fitness[0], S.num_valid[0])
+        for name, value in zip(MapOdometryResult._fields, row):
+            S.put_row(f"out.{name}", S.f, value, self.rows)
+        S.put("R_prev2", S.R_prev)
+        S.put("t_prev2", S.t_prev)
+        S.put("R_prev", R)
+        S.put("t_prev", t)
+        S.put("f", S.f + 1)
+
+    def parts(self, S) -> dict:
+        return {"prologue": lambda: self.prologue(S),
+                "step": lambda: self.loop.step(S),
+                "epilogue": lambda: self.epilogue(S)}
+
+
 def _odometry_map_impl(frames, map_xyz, mindex, T0, T_prev, detection,
                        handling, params, num_pairs, num_supers,
                        max_per_query, initial_cull_radius, reuse_margin,
                        use_constant_velocity, frame_analysis_fast,
-                       device) -> MapOdometryResult:
-    R_prev, t_prev = T0[:3, :3], T0[:3, 3]
-    R_prev2, t_prev2 = T_prev[:3, :3], T_prev[:3, 3]
-    fast_ok = (frame_analysis_fast
-               and detection is DetectionMethod.SCHUR_CONDITION_NUMBER)
-    outs = []
-    for f in range(frames.shape[0]):
-        R_pred, t_pred = _seed(R_prev, t_prev, R_prev2, t_prev2,
-                               use_constant_velocity)
-        out = icp_batch_so3(frames[f], map_xyz, R_pred[None], t_pred[None],
-                            detection, handling, params, mindex, num_pairs,
-                            num_supers=num_supers,
-                            max_per_query=max_per_query,
-                            initial_cull_radius=initial_cull_radius,
-                            reuse_pair_list=reuse_margin, device=device)
-        R, t = out.R[0], out.t[0]
-        ana = analyze(out.H_last[0], detection, params.thresholds,
-                      fast=fast_ok)
-        outs.append((se3.se3_matrix(R, t), out.iterations[0],
-                     out.converged[0], out.aborted[0],
-                     out.pair_overflow.to(torch.int32), ana.is_degenerate,
-                     ana.degenerate_mask, ana.cond_schur_rot,
-                     ana.cond_schur_trans, ana.cond_full, out.rmse[0],
-                     out.fitness[0], out.num_valid[0]))
-        R_prev2, t_prev2, R_prev, t_prev = R_prev, t_prev, R, t
-    cols = [torch.stack(c) for c in zip(*outs)]
-    return MapOdometryResult(*cols)
+                       device, graphed) -> MapOdometryResult:
+    F, N = frames.shape[:2]
+    loop = BatchLoop(mindex, map_xyz, 1, N, detection, handling, params,
+                     num_pairs, num_supers, max_per_query,
+                     initial_cull_radius, reuse_margin, device)
+    mloop = MapLoop(loop, use_constant_velocity, frame_analysis_fast,
+                    ROW_BLOCK * -(-F // ROW_BLOCK))
+
+    def load(S):
+        mloop.load(S, frames[0], T0, T_prev)
+
+    if graphed:
+        run = graphs.CACHE.lookup(
+            mloop.key(), load,
+            lambda S: graphs.Graphs("run_odometry_map", S, mloop.parts(S),
+                                    device))
+        S = run.state
+    else:
+        S = graphs.State()
+        load(S)
+        run = graphs.run_eager(mloop.parts(S))
+    for f in range(F):
+        if f:
+            S.put("src", frames[f])
+        drive(run, S, params.max_iterations)
+    return MapOdometryResult(*(getattr(S, f"out.{name}")[:F].clone()
+                               for name in MapOdometryResult._fields))
 
 
 def estimate_odometry_capacities(mindex, frames, traj_hint, radius,
@@ -282,7 +351,7 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
                      reuse_margin: float = 0.2,
                      use_constant_velocity: bool = True, traj_hint=None,
                      T_prev_init=None, frame_analysis_fast: bool = True,
-                     device=None) -> MapOdometryResult:
+                     device=None, graph=None) -> MapOdometryResult:
     """The localization loop against a map-scale prior: per frame, a
     constant-velocity seed + one B = 1 map-mode DCReg registration with a
     reused pair list.
@@ -293,9 +362,13 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
     initial_cull_radius + reuse_margin: pass them, or pass ``traj_hint``
     (F, 4, 4) to estimate them here.  ``T_prev_init`` is the pose one
     frame before T0 (known initial velocity).  Runs on ``device`` (cuda
-    unless told otherwise)."""
+    unless told otherwise): on the card each frame replays the CUDA
+    graphs of its parts (``MapLoop``), captured at the first call of
+    their statics; ``graph=False`` runs them eagerly, for checking only;
+    on the CPU they run eagerly and ``graph=True`` raises."""
     check_precise()
     dev = resolve_device(device)
+    graphed = graphs.use_graphs(dev, graph)
     if detection is None:
         detection = DetectionMethod.SCHUR_CONDITION_NUMBER
     if handling is None:
@@ -326,7 +399,7 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
                               int(max_per_query), float(initial_cull_radius),
                               float(reuse_margin),
                               bool(use_constant_velocity),
-                              bool(frame_analysis_fast), dev)
+                              bool(frame_analysis_fast), dev, graphed)
 
 
 def prepare_frames(frames, block: int = 128) -> np.ndarray:

@@ -18,7 +18,9 @@ the same operation order.  K1 splits each query block's run of pairs
 across CTAs and merges the per-split lists exactly; ``_split_bounds``
 and ``merge_partial_keys`` are that split and merge in plain torch, for
 the tests.  The cull and pair-list helpers are the JAX module's jnp code
-as torch ops.
+as torch ops.  The wrapper counts its launches through
+``graphs.note_launch``, so a launch inside a captured CUDA graph counts
+once per replay.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, graphs
 from .block_sparse import BlockIndex
 
 TB = 128
@@ -176,7 +178,7 @@ def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
     if rc != 0:
         raise RuntimeError(f"K1 block_knn kernel launch failed: "
                            f"cudaError {rc}")
-    block_knn_keys.launches += 1
+    graphs.note_launch(block_knn_keys)
     block_knn_keys.last_grid = {"nsplit": nsplit, "ctas": nq * nsplit * B}
     return out
 

@@ -216,7 +216,8 @@ def align_to_axes(V, lam) -> AlignmentInfo:
     for axis in range(3):
         scores = torch.where(taken, float("-inf"), absV[..., axis, :])
         col = torch.argmax(scores, dim=-1)
-        taken = taken | torch.nn.functional.one_hot(col, 3).bool()
+        taken = taken | (col[..., None] == torch.arange(3,
+                                                        device=V.device))
         cols.append(col)
     order = torch.stack(cols, dim=-1)
     V_perm = torch.gather(V, -1, order[..., None, :].expand(V.shape))

@@ -28,7 +28,8 @@ and bound with ctypes) or raises; a tensor on the CPU takes the plain
 PyTorch twin, which computes the same keys with the same float operations
 in the same order.  The twins are public (``knn_candidates_plain``,
 ``group_min_plain``) so that the kernels can be checked against them on
-the card.
+the card.  They count their launches through ``graphs.note_launch``, so
+a launch inside a captured CUDA graph counts once per replay.
 
 Both kernels can split the targets.  Where N is too small to fill the
 card, K2 gives each of a query's S warps one slice of every tile of TILE
@@ -46,7 +47,7 @@ import functools
 
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, graphs
 
 BIG = 3.0e38
 GROUP = 128
@@ -248,9 +249,7 @@ def _launch_candidates(query, target, pen, kk):
             split, val.data_ptr(), idx.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K2 knn kernel launch failed: cudaError {rc}")
-    knn_candidates.launches += 1
-    by_kk = knn_candidates.launches_by_kk
-    by_kk[kk] = by_kk.get(kk, 0) + 1
+    graphs.note_launch(knn_candidates, kk)
     per_cta = QUERIES_PER_WARP * K2_WARPS // split
     knn_candidates.last_grid = {
         "ctas": -(-n // per_cta), "warps_per_cta": K2_WARPS,
@@ -339,7 +338,7 @@ def _launch_group_min(query, target, pen):
     if rc != 0:
         raise RuntimeError(f"K3 group-min kernel launch failed: cudaError "
                            f"{rc}")
-    group_min.launches += 1
+    graphs.note_launch(group_min)
     chunks = -(-out.shape[0] // gpc)
     group_min.last_grid = {
         "ctas": -(-n // K3_QUERIES_PER_CTA) * chunks, "chunks": chunks,

@@ -210,11 +210,13 @@ def eigh3_closed(A):
     lam_b = torch.where(hi_first, w0, w2)
     va, ok_a = best_null_vector(lam_a)
     vb_raw, ok_b = best_null_vector(lam_b)
-    e0 = torch.zeros_like(va)
-    e0[..., 0] = 1.0
+    # the unit x vector by comparison, not by a write of a host scalar
+    e0 = (torch.arange(3, device=va.device) == 0).to(dtype).expand_as(va)
     va = torch.where(ok_a[..., None], va, e0)
     least = torch.argmin(torch.abs(va), dim=-1)
-    alt = torch.nn.functional.one_hot(least, 3).to(dtype)
+    # one-hot by comparison: no host read of the indices on any device
+    alt = (least[..., None] == torch.arange(3, device=least.device)).to(
+        dtype)
     vb_raw = torch.where(ok_b[..., None], vb_raw, alt)
     vb = vb_raw - torch.sum(vb_raw * va, dim=-1, keepdim=True) * va
     nb2 = torch.sum(vb * vb, dim=-1, keepdim=True)

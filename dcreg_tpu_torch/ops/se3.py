@@ -118,8 +118,9 @@ def adjoint(R, t):
 def se3_matrix(R, t):
     """4x4 homogeneous matrix from (R, t)."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 3] = 1.0
+    # the row (0, 0, 0, 1) by comparison, not by a write of a host scalar
+    bottom = (torch.arange(4, device=R.device) == 3).to(top.dtype).expand_as(
+        top[..., :1, :])
     return torch.cat([top, bottom], dim=-2)
 
 
