@@ -42,7 +42,9 @@ sm_90a), then runs on the card:
      targets, 30% invalid, (h) the O3D engine's normal search (self
      query, k 30, kk 60) and (i) kk 128 (the moved cylinder against
      itself), and (j) (g)'s shapes at kk 128; each row prints the grids
-     the wrappers launched;
+     the wrappers launched; and K2 alone captured in a CUDA graph and
+     replayed at (d) and (e), bit for bit, one launch counted per
+     replay;
   6. the pair harness on the 8,192-point synthetic cylinder (source ==
      target), f32, through the port's TestRunner, once with the CSR grid
      search and once with K2 as every iteration's search, for three
@@ -56,19 +58,29 @@ sm_90a), then runs on the card:
      O3D launching K2 at kk 60, and the two backends agreeing per method
      (iterations within 1, poses within 1e-4 m and 1e-3 deg: the final
      poses of a method that converged on both, the poses after
-     iteration 10 of any other); one Ours, XICP and O3D run each under
-     the profiler;
+     iteration 10 of any other); the SO(3) and Euler rows as CUDA graph
+     replays (the warm-up call captures), XICP, O3D and SuperLoc
+     eagerly; the graphed rows of the cylinder and Euler matrices rerun
+     eagerly (``TestRunner(graph=False)``) on each backend: equal
+     iterations and poses within 1e-6 m and 1e-6 rad, bit-equality
+     reported; one Ours, XICP and O3D run each under the profiler (the
+     host's launch calls per ICP iteration printed);
   7. the ``kernels`` line: K1, K2 and K3 with their launches on each
-     path (K2's including (8b) and (9c), K1's (10a) and (10b)), times,
-     bounds and library times; printed after phase 10;
+     path (K2's including (8b) and (9c), and those of them from graph
+     replays; K1's (10a) and (10b)), times, bounds and library times;
+     printed after phase 10;
   8. on phase 2's world, trajectory and scans: (8a) the voxel map index
      (``build_voxel_grid`` over the whole map on the card) and the voxel
      odometry loop ``run_odometry`` over the 128 frames from the pose
      before frame 0, f32, voxel edge = search radius, the voxel capacity
-     from the largest occupancy around the trajectory; gated on every
-     frame converging, mean translation error < 5 cm, max < 10 cm and
-     every position within 3 cm of phase 2's; a profile window of 2
-     frames; (8b) ``voxel_knn`` against K2 (``knn``) for frame 0 at its
+     from the largest occupancy around the trajectory, replayed as CUDA
+     graphs (the capture timed in the warm run); gated on every frame
+     converging, mean translation error < 5 cm, max < 10 cm and every
+     position within 3 cm of phase 2's; its first 16 frames eagerly and
+     graphed in alternating order over three rounds (equal iterations,
+     poses within 1e-6 m and 1e-6 rad); a graphed profile window of 2
+     frames (under 50 kernel-launch calls per ICP trip); (8b)
+     ``voxel_knn`` against K2 (``knn``) for frame 0 at its
      GT pose: for every query whose 5th distance is within the search
      radius the same neighbours (but for exact ties) at distances
      within 2 ulp; (8c) ``optimize_pose_graph`` on a 128-pose window of
@@ -121,8 +133,9 @@ sm_90a), then runs on the card:
      breaches are counted) and its error beside the JAX package's
      recorded row.
 
-Every registration of phases 2, 3, 4, 10a and 10b runs as CUDA graph
-replays; the ``graphs`` line counts the captures and their seconds.
+Every registration of phases 2, 3, 4, 8a, 10a and 10b, and of phase 6's
+SO(3) and Euler rows, runs as CUDA graph replays; the ``graphs`` line
+counts the captures and their seconds.
 
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
@@ -515,6 +528,8 @@ def check_k1_graph(name, a):
 
 EAGER_CHECK_FRAMES = 16
 EAGER_CHECK_ROUNDS = 3
+# phase 6's matrices rerun eagerly against their graphed runs
+EAGER_CHECK_MATRICES = ("cylinder", "euler")
 
 
 def rotation_diff_rad(R_a, R_b):
@@ -748,6 +763,42 @@ def check_knn(name, query, target, valid, k, kk):
     return k2, k3
 
 
+def check_k2_graph(name, query, target, valid, kk):
+    """K2 alone captured in a CUDA graph and replayed (``graphs.Graphs``),
+    as ``check_k1_graph`` holds K1: (val, idx) bit for bit against the
+    plain twin, and one launch counted per replay (of them one from the
+    replay)."""
+    from dcreg_tpu_torch import graphs
+    from dcreg_tpu_torch.ops import knn_kernels as kn
+    pen = kn._penalty(target.shape[0], valid, query.device)
+    state = graphs.State()
+
+    def part():
+        val, idx = kn.knn_candidates(query, target, pen, kk)
+        state.put("val", val)
+        state.put("idx", idx)
+
+    g = graphs.Graphs(f"K2 {name}", state, {"k2": part}, query.device)
+    state.val.fill_(0.0)
+    state.idx.fill_(0)
+    before = (kn.knn_candidates.launches, kn.knn_candidates.launches_replayed)
+    g("k2")
+    torch.cuda.synchronize()
+    counted = kn.knn_candidates.launches - before[0]
+    replayed = kn.knn_candidates.launches_replayed - before[1]
+    val_p, idx_p = kn.knn_candidates_plain(query, target, pen, kk)
+    bits = lambda x: x.view(torch.int32)
+    row = {"phase": "k2_graph_check", "shape": name, "kk": kk,
+           "entries": int(val_p.numel()),
+           "mismatches": int((bits(state.val) != bits(val_p)).sum()
+                             + (state.idx != idx_p).sum()),
+           "launches_per_replay": counted,
+           "launches_from_the_replay": replayed, "capture_s": g.seconds}
+    emit(row)
+    if row["mismatches"] or counted != 1 or replayed != 1:
+        raise RuntimeError(f"K2 in a CUDA graph failed: {row}")
+
+
 def knn_checks(seed, T0, device):
     """K2 and K3 at the shapes of the pair path: (d) the 5-NN self query
     of the 8,192-point cylinder, (e) nn1 of the cylinder moved by the
@@ -782,6 +833,9 @@ def knn_checks(seed, T0, device):
             "i_kk128": check_knn("i_kk128", moved, cyl, None, 125, 128),
             "j_ragged_kk128": check_knn("j_ragged_kk128", small_q,
                                         f32(small), small_valid, 125, 128)}
+    if device != "cpu":
+        check_k2_graph("d_self_5nn", cyl, cyl, None, 10)
+        check_k2_graph("e_nn1", moved, cyl, None, 8)
     kn.group_min.launches = 0
     dg, ig = kn.knn_grouped(big_q, f32(big), valid, k=5)
     k3_launches = kn.group_min.launches
@@ -870,6 +924,7 @@ def pair_harness(world, scenario, cfg, backend, device):
         per_method = {}
         t0 = time.perf_counter()
         kn.knn_candidates.launches = 0
+        kn.knn_candidates.launches_replayed = 0
         kn.knn_candidates.launches_by_kk = {}
         runner.load_point_clouds(world, world)
         for name, det, hand in cfg.methods():
@@ -883,6 +938,7 @@ def pair_harness(world, scenario, cfg, backend, device):
         runner.save_results()
         seconds = time.perf_counter() - t0
         launches = {"total": kn.knn_candidates.launches,
+                    "replayed": kn.knn_candidates.launches_replayed,
                     "by_kk": dict(sorted(
                         kn.knn_candidates.launches_by_kk.items()))}
         missing = [f for f in expected_artifacts(cfg)
@@ -918,6 +974,7 @@ def pair_harness(world, scenario, cfg, backend, device):
         emit({"phase": f"pair_harness_{scenario}_{backend}",
               "points": len(world), "seconds": seconds,
               "k2_launches": launches["total"],
+              "k2_launches_from_replays": launches["replayed"],
               "k2_launches_by_kk": launches["by_kk"],
               "missing_artifacts": missing,
               "methods": {m: {k: v for k, v in d.items() if k != "record"}
@@ -945,12 +1002,83 @@ def pair_harness(world, scenario, cfg, backend, device):
             profiled += ["XICP", "O3D"]
         for name in profiled:
             if name in methods:
-                emit(profile_window(
+                # a warm call first: the window holds no capture
+                runner.run_single_test(name, *methods[name])
+                held = {}
+                prof = profile_window(
                     f"pair_{name.lower()}_profile_{scenario}_{backend}",
-                    lambda: runner.run_single_test(name, *methods[name])))
+                    lambda: held.update(r=runner.run_single_test(
+                        name, *methods[name])))
+                emit(dict(prof, **launch_rates(
+                    prof, int(held["r"][0].iterations))))
         return summary, launches
     finally:
         shutil.rmtree(out, ignore_errors=True)
+
+
+def launch_rates(prof, iterations):
+    """The host's kernel-launch calls (``cudaGraphLaunch`` apart) and the
+    kernels on the card per ICP iteration of a profile window that ran
+    ``iterations`` of them."""
+    calls = prof["host_launch_calls"]
+    kernel_calls = sum(calls.get(k, {}).get("count", 0)
+                       for k in LAUNCH_CALLS if k != "cudaGraphLaunch")
+    n = max(iterations, 1)
+    return {"icp_iterations": iterations,
+            "kernels_per_icp_iteration": prof["kernel_launches"] / n,
+            "launch_calls_per_icp_iteration": kernel_calls / n,
+            "graph_launches": calls.get("cudaGraphLaunch",
+                                        {}).get("count", 0)}
+
+
+def graphed_engine(name):
+    """Whether a row runs an engine the harness replays as CUDA
+    graphs (the SO(3) or the Euler engine); XICP, O3D and SuperLoc run
+    eagerly."""
+    return not (name.startswith("XICP") or name in ("O3D", "SuperLoc"))
+
+
+def pair_eager_check(world, scenario, cfg, backend, summary, device):
+    """One eager run (``TestRunner(graph=False)``) of each graphed row of
+    a matrix against its graphed run in ``summary``: gated on equal
+    iterations and final poses within 1e-6 m and 1e-6 rad; bit-equality
+    of the whole result (the log too) and both times reported."""
+    from dcreg_tpu_torch.harness import TestRunner
+    cfg = cfg._replace(output_folder="", use_grid_index=backend == "grid")
+    runner = TestRunner(cfg, dtype=torch.float32, device=device,
+                        graph=False)
+    runner.load_point_clouds(world, world)
+    rows = {}
+    for name, det, hand in cfg.methods():
+        if not graphed_engine(name):
+            continue
+        ref, ms, _ = runner.run_single_test(name, det, hand)
+        out = summary[name]["record"].result
+        dt = float(np.linalg.norm(np.asarray(out.t, np.float64)
+                                  - np.asarray(ref.t, np.float64)))
+        dr = float(rotation_diff_rad(
+            torch.as_tensor(np.asarray(out.R)),
+            torch.as_tensor(np.asarray(ref.R))))
+        same = all(np.array_equal(np.asarray(a), np.asarray(b),
+                                  equal_nan=np.asarray(a).dtype.kind == "f")
+                   for a, b in zip(list(out[:-1]) + list(out.log),
+                                   list(ref[:-1]) + list(ref.log)))
+        rows[name] = {"iterations": [int(out.iterations),
+                                     int(ref.iterations)],
+                      "pose_diff_m": dt, "rot_diff_rad": dr,
+                      "bit_equal": same,
+                      "graphed_ms": summary[name]["time_mean_ms"],
+                      "eager_ms": ms}
+    row = {"phase": f"pair_eager_vs_graphed_{scenario}_{backend}",
+           "methods": rows}
+    emit(row)
+    bad = [m for m, r in rows.items()
+           if r["iterations"][0] != r["iterations"][1]
+           or r["pose_diff_m"] > 1e-6 or r["rot_diff_rad"] > 1e-6]
+    if bad:
+        raise RuntimeError(f"graphed method runs differ from eager ones: "
+                           f"{bad}: {row}")
+    return rows
 
 
 # a method that does not converge on both backends is compared after this
@@ -1010,6 +1138,9 @@ def run_pair(seed: int, device: str = "cuda"):
         for backend in ("grid", "brute"):
             runs[name, backend], launches[f"pair_{name}_{backend}"] = \
                 pair_harness(world, name, cfg, backend, device)
+            if name in EAGER_CHECK_MATRICES:
+                pair_eager_check(world, name, cfg, backend,
+                                 runs[name, backend], device)
         grid, brute = runs[name, "grid"], runs[name, "brute"]
         agree[name] = {m: backend_agreement(grid[m]["record"],
                                             brute[m]["record"])
@@ -1025,6 +1156,8 @@ def run_pair(seed: int, device: str = "cuda"):
           "replaces": "dcreg_tpu/ops/pallas_knn.py:47",
           "launches": sum(v["total"] for v in launches.values()),
           "launches_by_path": {p: v["total"] for p, v in launches.items()},
+          "launches_from_replays_by_path": {p: v["replayed"]
+                                            for p, v in launches.items()},
           "launches_by_path_and_kk": {p: v["by_kk"]
                                       for p, v in launches.items()},
           "launches_per_method_run": {
@@ -1116,6 +1249,7 @@ def run_voxel(seed, ctx, device: str = "cuda"):
     128-pose window in f32 on the card against f64 on the CPU, (8d) the
     trajectories through TUM files and their scores.  Returns K2's
     launches in (8b)."""
+    from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.io import tum
     from dcreg_tpu_torch.models.odometry import OdometryParams, run_odometry
     from dcreg_tpu_torch.models.pose_graph import (make_edges,
@@ -1135,11 +1269,14 @@ def run_voxel(seed, ctx, device: str = "cuda"):
     cap, occ = voxel_capacity(world[tube_idx], grid)
     params = OdometryParams(capacity=cap)
 
-    def odom(n):
+    def odom(n, graph=None):
         return run_odometry(frames[:n], grid, T0=ctx["T_pre1"],
-                            params=params, device=device)
+                            params=params, device=device, graph=graph)
 
+    cap0 = (graphs.CACHE.captures, graphs.CACHE.capture_seconds)
     _, warm_s = wall(lambda: odom(VOXEL_WARM_FRAMES))
+    captures = graphs.CACHE.captures - cap0[0]
+    capture_s = graphs.CACHE.capture_seconds - cap0[1]
     n_timed = FRAMES
     if warm_s / VOXEL_WARM_FRAMES * FRAMES > VOXEL_TIMED_LIMIT_S:
         n_timed = FRAMES // 2
@@ -1155,8 +1292,10 @@ def run_voxel(seed, ctx, device: str = "cuda"):
                                  "for all"),
            "map_points": int(world.shape[0]), "grid_build_s": build_s,
            "grid_dims": [int(d) for d in grid.dims],
-           "capacity": cap, "largest_occupancy": occ,
-           "warm_run_s": warm_s, "ms_per_frame": dt / n_timed * 1e3,
+           "capacity": cap, "largest_occupancy": occ, "graphed": True,
+           "warm_run_s": warm_s, "graph_captures": captures,
+           "graph_capture_s": capture_s,
+           "ms_per_frame": dt / n_timed * 1e3,
            "iters_per_frame": float(res.iterations.float().mean()),
            "converged_frac": float(res.converged.float().mean()),
            "te_mean_m": float(te.mean()), "te_max_m": float(te.max()),
@@ -1166,14 +1305,21 @@ def run_voxel(seed, ctx, device: str = "cuda"):
     if not (bool(res.converged.all()) and te.mean() < 0.05
             and te.max() < 0.10 and vs_map.max() < 0.03):
         raise RuntimeError(f"voxel odometry gates failed: {row}")
+    row = eager_vs_graphed(lambda graph: odom(EAGER_CHECK_FRAMES, graph),
+                           "voxel_eager_vs_graphed")
+    row["phase8_s"] = since()
+    emit(row)
     prof = profile_window("voxel_odometry_profile",
                           lambda: odom(VOXEL_PROFILE_FRAMES))
-    prof_iters = int(res.iterations[:VOXEL_PROFILE_FRAMES].sum())
-    prof["icp_trips"] = prof_iters
-    prof["kernels_per_icp_trip"] = prof["kernel_launches"] / max(prof_iters,
-                                                                 1)
+    prof.update(launch_rates(
+        prof, int(res.iterations[:VOXEL_PROFILE_FRAMES].sum())))
     prof["phase8_s"] = since()
     emit(prof)
+    if device != "cpu" and not (
+            prof["graph_launches"] > 0
+            and prof["launch_calls_per_icp_iteration"] < 50):
+        raise RuntimeError(f"the graphed voxel loop's profile does not "
+                           f"show graph replay: {prof}")
 
     # ---- 8b. voxel_knn held against K2 ------------------------------------
     T = torch.as_tensor(gt[0], dtype=torch.float32, device=device)
@@ -2074,18 +2220,11 @@ def run(seed: int, device: str = "cuda"):
 
         prof = profile_window("odometry_profile" if graph is None
                               else "odometry_profile_eager", window)
-        trips = int(held["res"].iterations.sum())
-        calls = prof["host_launch_calls"]
-        kernel_calls = sum(calls.get(k, {}).get("count", 0)
-                           for k in LAUNCH_CALLS if k != "cudaGraphLaunch")
-        prof.update(icp_iterations=trips,
-                    kernels_per_icp_iteration=prof["kernel_launches"] / trips,
-                    launch_calls_per_icp_iteration=kernel_calls / trips,
-                    graph_launches=calls.get("cudaGraphLaunch",
-                                             {}).get("count", 0))
+        prof.update(launch_rates(prof, int(held["res"].iterations.sum())))
         emit(prof)
         if graph is None and device != "cpu" and not (
-                prof["graph_launches"] > 0 and kernel_calls / trips < 50):
+                prof["graph_launches"] > 0
+                and prof["launch_calls_per_icp_iteration"] < 50):
             raise RuntimeError(f"the graphed loop's profile does not show "
                                f"graph replay: {prof}")
 
@@ -2226,15 +2365,20 @@ def main():
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     from dcreg_tpu_torch import graphs
+    from dcreg_tpu_torch.ops import knn_kernels as kn
     build_kernels()
     ctx, k1 = run(args.seed)
     k2, k3 = run_pair(args.seed)
-    k2_voxel = run_voxel(args.seed, ctx)
-    k2["launches"] += k2_voxel
-    k2["launches_by_path"]["voxel_knn_check"] = k2_voxel
-    k2_native = run_sharded(args.seed, ctx)
-    k2["launches"] += k2_native
-    k2["launches_by_path"]["native_kdtree_check"] = k2_native
+    for path, phase in (("voxel_knn_check", lambda: run_voxel(args.seed,
+                                                               ctx)),
+                        ("native_kdtree_check",
+                         lambda: run_sharded(args.seed, ctx))):
+        replayed = kn.knn_candidates.launches_replayed
+        n = phase()
+        k2["launches"] += n
+        k2["launches_by_path"][path] = n
+        k2["launches_from_replays_by_path"][path] = \
+            kn.knn_candidates.launches_replayed - replayed
     corridor, k1_corridor = run_corridor()
     k1["shapes"]["corridor_live_B1_reuse_mask"] = {
         f: k1_corridor[f] for f in k1["shapes"]["a_map_B1_slotted_nomask"]}

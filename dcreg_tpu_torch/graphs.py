@@ -21,7 +21,13 @@ part.
 Kernel launches inside a capture are not launches: the wrappers report
 them through ``note_launch``, which tallies them into the capture, and
 each replay adds the tally to the wrappers' counters, so ``launches``
-counts what the card ran.
+counts what the card ran (and ``launches_replayed`` the part of it that
+came from replays).
+
+Every loop class (``BatchLoop``, ``MapLoop``, ``PairLoop``,
+``EulerLoop``, ``VoxelLoop``) has ``key()`` and ``parts(state)``;
+``bind`` gives the runner of its parts and their state, and ``drive``
+runs one pass of the loop.
 """
 from __future__ import annotations
 
@@ -35,8 +41,11 @@ import torch
 _RECORDING: list = []
 
 
-def _bump(wrapper, kk, n: int) -> None:
+def _bump(wrapper, kk, n: int, replayed: bool = False) -> None:
     wrapper.launches += n
+    if replayed:
+        wrapper.launches_replayed = getattr(wrapper, "launches_replayed",
+                                            0) + n
     if kk is not None:
         by_kk = wrapper.launches_by_kk
         by_kk[kk] = by_kk.get(kk, 0) + n
@@ -105,7 +114,8 @@ def use_graphs(device: torch.device, graph, plain_knn: bool = False) -> bool:
 
 def tensor_key(*objs) -> tuple:
     """(data_ptr, shape, stride, dtype, device) of every tensor in
-    ``objs``, walking dataclasses and NamedTuples: what a graph that
+    ``objs``, walking dataclasses and NamedTuples, and the scalar statics
+    beside them (a grid's dims, a block index's sizes): what a graph that
     reads them in place depends on besides their contents."""
     out = []
 
@@ -119,6 +129,8 @@ def tensor_key(*objs) -> tuple:
         elif isinstance(o, tuple):
             for v in o:
                 walk(v)
+        elif isinstance(o, (bool, int, float, str)) or o is None:
+            out.append(o)
 
     for o in objs:
         walk(o)
@@ -170,7 +182,7 @@ class Graphs:
     def __call__(self, name: str) -> None:
         self.graphs[name].replay()
         for (wrapper, kk), n in self.launches[name].items():
-            _bump(wrapper, kk, n)
+            _bump(wrapper, kk, n, replayed=True)
 
 
 class GraphCache:
@@ -210,3 +222,38 @@ class GraphCache:
 
 
 CACHE = GraphCache()
+
+
+def bind(loop, load, graphed: bool, label: str, device):
+    """(run, state) of ``loop``: ``run(name)`` runs a part eagerly over a
+    fresh ``State`` that ``load`` filled, or, ``graphed``, replays the
+    cached graphs of ``loop.key()`` (captured on a miss, named ``label``
+    in a capture error) over their state, refilled by ``load``."""
+    if not graphed:
+        state = State()
+        load(state)
+        return run_eager(loop.parts(state)), state
+    entry = CACHE.lookup(loop.key(), load,
+                         lambda s: Graphs(label, s, loop.parts(s), device))
+    return entry, entry.state
+
+
+def drive(run, S, max_iterations: int) -> None:
+    """One pass of a compiled loop: the prologue, steps until the state's
+    ``done`` flag is set (one host read per step, as the JAX
+    ``while_loop``'s condition) or ``max_iterations`` steps ran, the
+    epilogue.  ``run(name)`` runs or replays a part."""
+    run("prologue")
+    for it in range(max_iterations):
+        if it and bool(S.done):                   # one host sync per trip
+            break
+        run("step")
+    run("epilogue")
+
+
+def detached(tree):
+    """Fresh copies of a result's tensors: a graph's state is overwritten
+    by its next call."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(detached(v) for v in tree))

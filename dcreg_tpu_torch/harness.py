@@ -6,7 +6,9 @@ call on the device, timed on the host clock with the device
 synchronised; everything after is bookkeeping on numpy.  The engine of a
 row: O3D ``o3d_icp``, XICP* ``xicp_register``, SuperLoc
 ``superloc_register``, any other the SO(3) engine, or the Euler engine
-when ``use_so3_parameterization`` is false.
+when ``use_so3_parameterization`` is false.  On the card the SO(3) and
+Euler engines replay CUDA graphs (the warm-up call of a row captures,
+the timed call replays); the XICP, O3D and SuperLoc engines run eagerly.
 """
 from __future__ import annotations
 
@@ -52,11 +54,15 @@ def _synchronize(device):
 class TestRunner:
     """Drives the configured method matrix over one frame pair on
     ``device`` (cuda unless told otherwise), in ``dtype``: by default f32
-    on the card (which runs no f64 search) and f64 on the CPU."""
+    on the card (which runs no f64 search) and f64 on the CPU.  ``graph``
+    goes to the SO(3) and Euler engines: None replays CUDA graphs on the
+    card, False runs them eagerly (for checking), True raises on the
+    CPU."""
 
-    def __init__(self, config: Config, dtype=None, device=None):
+    def __init__(self, config: Config, dtype=None, device=None, graph=None):
         self.config = config
         self.device = resolve_device(device)
+        self.graph = graph
         if dtype is None:
             dtype = (torch.float64 if self.device.type == "cpu"
                      else torch.float32)
@@ -110,7 +116,7 @@ class TestRunner:
         engine = (icp_point_to_plane_so3 if cfg.use_so3_parameterization
                   else icp_point_to_plane_euler)
         return lambda R, t: engine(src, tgt, R, t, detection, handling,
-                                   params, **common)
+                                   params, graph=self.graph, **common)
 
     # -- single test ------------------------------------------------------
     def run_single_test(self, method_name: str, detection: DetectionMethod,

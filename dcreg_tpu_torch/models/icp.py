@@ -6,8 +6,10 @@ Two-pass design as in the JAX module: the optimisation loop records a
 minimal per-iteration ``Hist`` (the 6x6 system plus scalar stats), and the
 full per-iteration telemetry is reconstructed from it afterwards as one
 batched pass over the iterations (and the lanes, in the batched engine).
-The JAX ``while_loop`` is a Python loop here, with one host sync per
-iteration on (converged | aborted).
+The JAX ``jit`` over a ``while_loop`` is a prologue, a step and an
+epilogue over fixed state tensors (``PairLoop``), captured as CUDA graphs
+on the card and replayed (``graphs``); the host reads the done flag
+(converged | aborted) once per step.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..ops import linalg, se3
 from ..ops.correspondence import CorrespondenceParams, find_correspondences
 from ..ops.degeneracy import (DegeneracyThresholds, DetectionMethod,
@@ -228,13 +231,139 @@ def covariance_from_H(H_last, converged, dtype):
                        1e6 * eye)
 
 
+class PairLoop:
+    """One configuration of ``icp_point_to_plane_so3`` split into the
+    parts of its compiled loop, each reading and writing a
+    ``graphs.State`` in place:
+
+      * ``load`` copies the per-call inputs into the state: source
+        ``src``, ``R0``, ``t0``, ``T_gt``;
+      * ``prologue`` the loop state: the pose, the flags, the empty
+        history and the device-side iteration counter ``k``;
+      * ``step`` one iteration (``iterate``), the history row ``k``
+        written through a comparison mask, the pose update and the
+        ``done`` flag the host reads once per step;
+      * ``epilogue`` ``H_last`` gathered at ``k - 1``, the telemetry
+        pass (or the empty log) and the covariance.
+
+    ``key()`` holds every static the parts bake in, and the address and
+    layout of the tensors they read in place (the target, the search
+    index, the validity masks)."""
+
+    name = "icp_point_to_plane_so3"
+
+    def __init__(self, target_xyz, N: int, detection: DetectionMethod,
+                 handling: HandlingMethod, params: ICPParams, target_valid,
+                 source_valid, num_source, grid, device, dtype):
+        self.target, self.grid = target_xyz, grid
+        self.target_valid, self.source_valid = target_valid, source_valid
+        self.N, self.num_source = N, num_source
+        self.detection, self.handling, self.params = detection, handling, \
+            params
+        self.fast = (detection is DetectionMethod.SCHUR_CONDITION_NUMBER and
+                     handling is HandlingMethod.PRECONDITIONED_CG)
+        self.dev, self.dtype = device, dtype
+
+    def key(self) -> tuple:
+        return (self.name, self.N, self.num_source,
+                self.detection, self.handling, self.params, str(self.dtype),
+                str(self.dev), graphs.tensor_key(
+                    self.target, self.grid, self.target_valid,
+                    self.source_valid))
+
+    def load(self, S, source_xyz, R0, t0, T_gt) -> None:
+        S.put("src", source_xyz)
+        S.put("R0", R0)
+        S.put("t0", t0)
+        S.put("T_gt", T_gt)
+
+    def prologue(self, S) -> None:
+        dev = self.dev
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        S.put("R", S.R0)
+        S.put("t", S.t0)
+        S.put("conv", false)
+        S.put("abt", false)
+        S.put("done", false)
+        S.put("k", torch.zeros((), dtype=torch.int64, device=dev))
+        S.put_tuple("hist", empty_hist(self.params.max_iterations,
+                                       self.dtype, device=dev))
+
+    def iterate(self, S):
+        """One ICP iteration at the state's pose: (system, dx,
+        abort_now)."""
+        params = self.params
+        corr = find_correspondences(S.src, S.R, S.t, self.target,
+                                    target_valid=self.target_valid,
+                                    source_valid=self.source_valid,
+                                    params=params.corr, chunk=params.chunk,
+                                    grid=self.grid)
+        sysm = build_system(S.src, S.R, S.t, corr, num_source=self.num_source,
+                            use_weight_derivative=params.use_weight_derivative,
+                            weight_slope=params.corr.weight_slope)
+        analysis = analyze(sysm.H, self.detection, params.thresholds,
+                           fast=self.fast)
+        dx, _ = solve(sysm.H, sysm.g, self.handling, analysis,
+                      params.thresholds, telemetry=False, fast=self.fast)
+        too_few = sysm.num_valid < params.min_effective_points
+        abort_now = too_few | ~torch.all(torch.isfinite(dx))
+        return sysm, torch.where(abort_now, 0.0, dx), abort_now
+
+    def step(self, S) -> None:
+        params = self.params
+        sysm, dx, abort_now = self.iterate(S)
+        for name, value in (("R", S.R), ("t", S.t), ("H", sysm.H),
+                            ("g", sysm.g), ("dx", dx),
+                            ("num_valid", sysm.num_valid.to(torch.int32)),
+                            ("rmse", sysm.rmse), ("fitness", sysm.fitness),
+                            ("objective", sysm.objective)):
+            S.put_row(f"hist.{name}", S.k, value, params.max_iterations)
+        R_new, t_new = se3.boxplus(S.R, S.t, dx)
+        conv = (torch.linalg.norm(dx[:3]) < params.convergence_thresh_rot) \
+            & (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans) \
+            & ~abort_now
+        S.put("R", torch.where(abort_now, S.R, R_new))
+        S.put("t", torch.where(abort_now, S.t, t_new))
+        S.put("conv", conv)
+        S.put("abt", abort_now)
+        S.put("k", S.k + 1)
+        S.put("done", conv | abort_now)
+
+    def epilogue(self, S) -> None:
+        params, dtype = self.params, self.dtype
+        I = params.max_iterations
+        hist = S.get_tuple("hist", Hist)
+        last = torch.clamp(S.k - 1, min=0).reshape(1)
+        H_last = hist.H.index_select(0, last)[0]
+        if params.full_telemetry:
+            executed = torch.arange(I, device=self.dev) < S.k
+            log = telemetry_row(hist, executed, self.detection,
+                                self.handling, params.thresholds,
+                                params.min_effective_points, S.T_gt)
+        else:
+            log = _empty_log(I, dtype, device=self.dev)
+        S.put_tuple("log", log)
+        S.put("cov", covariance_from_H(H_last, S.conv, dtype))
+        S.put("iterations", S.k.to(torch.int32))
+
+    def parts(self, S) -> dict:
+        return {"prologue": lambda: self.prologue(S),
+                "step": lambda: self.step(S),
+                "epilogue": lambda: self.epilogue(S)}
+
+    def result(self, S) -> ICPResult:
+        return ICPResult(R=S.R, t=S.t, converged=S.conv, aborted=S.abt,
+                         iterations=S.iterations, covariance=S.cov,
+                         log=S.get_tuple("log", IterationLog))
+
+
 def icp_point_to_plane_so3(source_xyz, target_xyz, R0, t0,
                            detection: DetectionMethod,
                            handling: HandlingMethod,
                            params: ICPParams = ICPParams(),
                            T_gt=None, target_valid=None, source_valid=None,
                            num_source: int | None = None,
-                           grid=None, device=None) -> ICPResult:
+                           grid=None, device=None, graph=None) -> ICPResult:
     """Run the SO(3) point-to-plane ICP of one frame pair to convergence.
 
     source_xyz (N, 3) body frame, target_xyz (M, 3) map frame, (R0, t0)
@@ -245,65 +374,41 @@ def icp_point_to_plane_so3(source_xyz, target_xyz, R0, t0,
     path: closed-form 3x3 Schur spectra and Cholesky/PCG, the 6x6 spectra
     only in the telemetry pass.  An iteration with fewer than
     ``min_effective_points`` correspondences or a non-finite update
-    aborts without moving; convergence is tested after the update.  Runs
-    on ``device`` (cuda unless told otherwise)."""
+    aborts without moving; convergence is tested after the update.
+
+    Runs on ``device`` (cuda unless told otherwise).  On the card the
+    loop's parts (``PairLoop``) run as CUDA graphs, captured at the first
+    call of their statics and replayed after (``graphs.CACHE``; the
+    target, the index and the masks are read in place, so a call with the
+    same tensors replays); ``graph=False`` runs them eagerly, for
+    checking only; on the CPU they run eagerly and ``graph=True``
+    raises."""
+    return run_pair_loop(PairLoop, source_xyz, target_xyz, R0, t0,
+                         detection, handling, params, T_gt, target_valid,
+                         source_valid, num_source, grid, device, graph)
+
+
+def run_pair_loop(cls, source_xyz, target_xyz, R0, t0, detection, handling,
+                  params, T_gt, target_valid, source_valid, num_source, grid,
+                  device, graph) -> ICPResult:
+    """A pair engine's call: the inputs on ``device`` in the source's
+    dtype, one pass of the loop class ``cls`` (``PairLoop`` or
+    ``EulerLoop``), replayed as graphs or run eagerly as ``graph`` and
+    the device say, and its result (copied out of a graph's state)."""
     check_precise()
     dev = resolve_device(device)
-    as_dev = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)
+    graphed = graphs.use_graphs(dev, graph)
     source_xyz = torch.as_tensor(source_xyz, device=dev)
     dtype = source_xyz.dtype
-    target_xyz = as_dev(target_xyz, dtype)
-    R, t = as_dev(R0, dtype), as_dev(t0, dtype)
+    as_dev = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    target_xyz = as_dev(target_xyz)
+    R0, t0 = as_dev(R0), as_dev(t0)
     T_gt = torch.eye(4, dtype=dtype, device=dev) if T_gt is None \
-        else as_dev(T_gt, dtype)
-    I = params.max_iterations
-    fast = (detection is DetectionMethod.SCHUR_CONDITION_NUMBER and
-            handling is HandlingMethod.PRECONDITIONED_CG)
-
-    hist = empty_hist(I, dtype, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    aborted = torch.zeros((), dtype=torch.bool, device=dev)
-    k = 0
-    while k < I and not bool(converged | aborted):   # one host sync
-        corr = find_correspondences(source_xyz, R, t, target_xyz,
-                                    target_valid=target_valid,
-                                    source_valid=source_valid,
-                                    params=params.corr, chunk=params.chunk,
-                                    grid=grid)
-        sysm = build_system(source_xyz, R, t, corr, num_source=num_source,
-                            use_weight_derivative=params.use_weight_derivative,
-                            weight_slope=params.corr.weight_slope)
-        analysis = analyze(sysm.H, detection, params.thresholds, fast=fast)
-        dx, _ = solve(sysm.H, sysm.g, handling, analysis, params.thresholds,
-                      telemetry=False, fast=fast)
-        too_few = sysm.num_valid < params.min_effective_points
-        abort_now = too_few | ~torch.all(torch.isfinite(dx))
-        dx = torch.where(abort_now, 0.0, dx)
-        hist.R[k], hist.t[k], hist.H[k], hist.g[k] = R, t, sysm.H, sysm.g
-        hist.dx[k] = dx
-        hist.num_valid[k] = sysm.num_valid.to(torch.int32)
-        hist.rmse[k], hist.fitness[k] = sysm.rmse, sysm.fitness
-        hist.objective[k] = sysm.objective
-        R_new, t_new = se3.boxplus(R, t, dx)
-        R = torch.where(abort_now, R, R_new)
-        t = torch.where(abort_now, t, t_new)
-        converged = (torch.linalg.norm(dx[:3])
-                     < params.convergence_thresh_rot) & \
-            (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans) \
-            & ~abort_now
-        aborted = abort_now
-        k += 1
-    H_last = hist.H[max(k - 1, 0)]
-
-    if params.full_telemetry:
-        executed = torch.arange(I, device=dev) < k
-        log = telemetry_row(hist, executed, detection, handling,
-                            params.thresholds, params.min_effective_points,
-                            T_gt)
-    else:
-        log = _empty_log(I, dtype, device=dev)
-    cov = covariance_from_H(H_last, converged, dtype)
-    return ICPResult(R=R, t=t, converged=converged, aborted=aborted,
-                     iterations=torch.tensor(k, dtype=torch.int32,
-                                             device=dev),
-                     covariance=cov, log=log)
+        else as_dev(T_gt)
+    loop = cls(target_xyz, source_xyz.shape[0], detection, handling, params,
+               target_valid, source_valid, num_source, grid, dev, dtype)
+    run, S = graphs.bind(
+        loop, lambda S: loop.load(S, source_xyz, R0, t0, T_gt), graphed,
+        cls.name, dev)
+    graphs.drive(run, S, params.max_iterations)
+    return graphs.detached(loop.result(S)) if graphed else loop.result(S)

@@ -31,6 +31,7 @@ from ..ops.block_sparse import BlockIndex, MapIndex
 from ..ops.degeneracy import DetectionMethod, HandlingMethod, analyze
 from ..ops.soa_tail import batched_tail_system
 from ..ops.solvers import solve
+from ..graphs import drive  # noqa: F401  (re-exported)
 from ..utils import check_precise, resolve_device
 from .icp import (Hist, ICPParams, IterationLog, _empty_log,
                   covariance_from_H, empty_hist, telemetry_row)
@@ -360,27 +361,6 @@ class BatchLoop:
                               num_valid=S.num_valid)
 
 
-def drive(run, S, max_iterations: int) -> None:
-    """The compiled loop: the prologue, steps until every lane converged
-    or aborted (one host read of the done flag per step, as the JAX
-    ``while_loop``'s condition) or the iterations run out, the epilogue.
-    ``run(name)`` runs or replays a part."""
-    run("prologue")
-    for it in range(max_iterations):
-        if it and bool(S.done):                   # one host sync per trip
-            break
-        run("step")
-    run("epilogue")
-
-
-def _detached(tree):
-    """Fresh copies of a result's tensors: a graph's state is overwritten
-    by its next call."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    return type(tree)(*(_detached(v) for v in tree))
-
-
 def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
                   detection: DetectionMethod, handling: HandlingMethod,
                   params: ICPParams, index, num_pairs: int, T_gt=None,
@@ -430,16 +410,9 @@ def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
     def load(S):
         loop.load(S, source_xyz, R0s, t0s, T_gt)
 
-    if not graphed:
-        S = graphs.State()
-        load(S)
-        drive(graphs.run_eager(loop.parts(S)), S, params.max_iterations)
-        return loop.result(S)
-    entry = graphs.CACHE.lookup(
-        loop.key(), load,
-        lambda S: graphs.Graphs("icp_batch_so3", S, loop.parts(S), dev))
-    drive(entry, entry.state, params.max_iterations)
-    return _detached(loop.result(entry.state))
+    run, S = graphs.bind(loop, load, graphed, "icp_batch_so3", dev)
+    graphs.drive(run, S, params.max_iterations)
+    return graphs.detached(loop.result(S)) if graphed else loop.result(S)
 
 
 def _host(x):

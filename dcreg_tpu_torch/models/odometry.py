@@ -2,8 +2,8 @@
 
 Two loops share the frame chain, a constant-velocity motion-model seed
 projected back onto SO(3) every frame; the JAX ``lax.scan`` over frames
-is a Python loop here (for the map loop, over the replays of its frame's
-CUDA graphs on the card, ``MapLoop``):
+is a Python loop here, over the replays of each frame's CUDA graphs on
+the card (``VoxelLoop``, ``MapLoop``):
 
   * ``run_odometry``, the voxel-grid loop: the map indexed once by
     ``build_voxel_grid``, and per frame a fixed-trip masked DCReg ICP
@@ -23,13 +23,13 @@ from .. import graphs
 from ..ops import se3
 from ..ops.block_sparse import kd_block_order
 from ..ops.correspondence import CorrespondenceParams, fit_planes
-from ..ops.degeneracy import (DegeneracyThresholds, DetectionMethod,
-                              HandlingMethod, analyze)
+from ..ops.degeneracy import (DegeneracyAnalysis, DegeneracyThresholds,
+                              DetectionMethod, HandlingMethod, analyze)
 from ..ops.solvers import solve
 from ..ops.voxel_grid import VoxelGrid, build_voxel_grid, voxel_knn
 from ..utils import check_precise, resolve_device
 from .icp import ICPParams
-from .icp_batch import BatchLoop, drive, estimate_map_capacities
+from .icp_batch import BatchLoop, estimate_map_capacities
 
 
 class OdometryParams(NamedTuple):
@@ -115,56 +115,138 @@ def _map_system(scan, scan_valid, grid: VoxelGrid, R, t,
     return H, g, n_valid, rmse, fitness
 
 
-def _register_to_map(scan, scan_valid, grid: VoxelGrid, R, t, detection,
-                     handling, params: OdometryParams):
-    """Masked DCReg ICP of one scan against the indexed map, with the
-    fixed-trip loop's results.  A trip after the frame stopped changes no
-    pose and repeats the evaluation at the final pose, so the loop ends
-    after one such trip; the telemetry is the last trip's."""
-    thr = params.thresholds
-    n_done, active = 0, True
-    H, g, n_valid, rmse, fitness = _map_system(scan, scan_valid, grid, R, t,
-                                               params)
-    ana = analyze(H, detection, thr)
-    for trip in range(params.icp_iterations):
-        if trip:
-            H, g, n_valid, rmse, fitness = _map_system(
-                scan, scan_valid, grid, R, t, params)
-            ana = analyze(H, detection, thr)
-            if not active:
-                break
-        dx, _ = solve(H, g, handling, ana, thr, telemetry=False)
-        ok = (n_valid >= params.min_effective_points) \
+# the loops' output rows are preallocated in blocks of this many frames,
+# so sequences of any length up to it share one capture
+ROW_BLOCK = 128
+
+class VoxelLoop:
+    """``run_odometry``'s frame as the parts of its compiled scan over a
+    ``graphs.State``: a masked DCReg ICP of at most
+    ``params.icp_iterations`` trips against the indexed map.  The host
+    copies each frame's scan and mask into the state (``scan``,
+    ``scan_valid``) before its prologue.
+
+      * ``prologue`` the constant-velocity seed from the previous two
+        poses in the state, the first evaluation (``_map_system``) and
+        its ``analyze``;
+      * ``step`` one trip: the solve, the pose update, the convergence
+        test and ``active`` (``done`` is its negation, read by the host
+        once per trip), then the next evaluation at the new pose.  A
+        trip after the frame stopped changes no pose and repeats the
+        evaluation at the final pose, so the step that stops the frame
+        takes that evaluation and the loop ends; after the last trip the
+        loop keeps the evaluation before it (``trip`` is the device-side
+        trip counter);
+      * ``epilogue`` writes the frame's row at the device-side frame
+        index ``f`` of preallocated ``(rows, ...)`` tensors and moves the
+        motion model on.
+
+    ``key()`` holds the statics and the address and layout of the
+    grid."""
+
+    def __init__(self, grid: VoxelGrid, N: int, detection, handling,
+                 params: OdometryParams, rows: int, device, dtype):
+        self.grid, self.N, self.rows = grid, N, rows
+        self.detection, self.handling, self.params = detection, handling, \
+            params
+        self.dev, self.dtype = device, dtype
+
+    def key(self) -> tuple:
+        return ("run_odometry", self.N, self.rows, self.detection,
+                self.handling, self.params, str(self.dtype), str(self.dev),
+                graphs.tensor_key(self.grid))
+
+    def load(self, S, frame0, frame0_valid, T0) -> None:
+        S.put("scan", frame0)
+        S.put("scan_valid", frame0_valid)
+        S.put("R_prev", T0[:3, :3])
+        S.put("t_prev", T0[:3, 3])
+        S.put("R_prev2", T0[:3, :3])
+        S.put("t_prev2", T0[:3, 3])
+        S.put("f", torch.zeros((), dtype=torch.int64, device=self.dev))
+
+    def evaluate(self, S) -> dict:
+        """The GN system at the state's pose and its analysis, by state
+        slot."""
+        values = _map_system(S.scan, S.scan_valid, self.grid, S.R, S.t,
+                             self.params)
+        ana = analyze(values[0], self.detection, self.params.thresholds)
+        out = dict(zip(("H", "g", "n_valid", "rmse", "fitness"), values))
+        out.update((f"ana.{k}", v) for k, v in ana._asdict().items())
+        return out
+
+    def prologue(self, S) -> None:
+        dev = self.dev
+        R, t = _seed(S.R_prev, S.t_prev, S.R_prev2, S.t_prev2,
+                     self.params.use_constant_velocity)
+        S.put("R", R)
+        S.put("t", t)
+        for name, value in self.evaluate(S).items():
+            S.put(name, value)
+        S.put("trip", torch.zeros((), dtype=torch.int64, device=dev))
+        S.put("active", torch.ones((), dtype=torch.bool, device=dev))
+        S.put("done", torch.zeros((), dtype=torch.bool, device=dev))
+
+    def step(self, S) -> None:
+        params = self.params
+        dx, _ = solve(S.H, S.g, self.handling,
+                      S.get_tuple("ana", DegeneracyAnalysis),
+                      params.thresholds, telemetry=False)
+        ok = (S.n_valid >= params.min_effective_points) \
             & torch.all(torch.isfinite(dx))
         dx = torch.where(ok, dx, torch.zeros_like(dx))
-        R, t = se3.boxplus(R, t, dx)
+        R, t = se3.boxplus(S.R, S.t, dx)
         conv = (torch.linalg.norm(dx[:3]) < params.convergence_thresh_rot) \
             & (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans)
-        n_done += 1
-        active = bool(ok & ~conv)
-    return R, t, not active, n_done, rmse, fitness, n_valid, ana
+        active = ok & ~conv
+        S.put("R", R)
+        S.put("t", t)
+        S.put("active", active)
+        S.put("done", ~active)
+        keep = S.trip < params.icp_iterations - 1
+        for name, value in self.evaluate(S).items():
+            S.put(name, torch.where(keep, value, getattr(S, name)))
+        S.put("trip", S.trip + 1)
+
+    def epilogue(self, S) -> None:
+        R, t = S.R, S.t
+        row = (se3.se3_matrix(R, t), S.trip, ~S.active, S.rmse, S.fitness,
+               S.n_valid, getattr(S, "ana.is_degenerate"),
+               getattr(S, "ana.degenerate_mask"),
+               getattr(S, "ana.cond_schur_rot"),
+               getattr(S, "ana.cond_schur_trans"),
+               getattr(S, "ana.cond_full"))
+        for name, value in zip(OdometryResult._fields, row):
+            S.put_row(f"out.{name}", S.f, value, self.rows)
+        S.put("R_prev2", S.R_prev)
+        S.put("t_prev2", S.t_prev)
+        S.put("R_prev", R)
+        S.put("t_prev", t)
+        S.put("f", S.f + 1)
+
+    def parts(self, S) -> dict:
+        return {"prologue": lambda: self.prologue(S),
+                "step": lambda: self.step(S),
+                "epilogue": lambda: self.epilogue(S)}
 
 
 def _odometry_impl(frames, frames_valid, grid: VoxelGrid, T0, detection,
-                   handling, params: OdometryParams) -> OdometryResult:
-    R_prev, t_prev = T0[:3, :3], T0[:3, 3]
-    R_prev2, t_prev2 = R_prev, t_prev
-    outs = []
-    for f in range(frames.shape[0]):
-        R_pred, t_pred = _seed(R_prev, t_prev, R_prev2, t_prev2,
-                               params.use_constant_velocity)
-        R, t, conv, iters, rmse, fitness, n_valid, ana = _register_to_map(
-            frames[f], frames_valid[f], grid, R_pred, t_pred, detection,
-            handling, params)
-        outs.append((se3.se3_matrix(R, t), iters, conv, rmse, fitness,
-                     n_valid, ana.is_degenerate, ana.degenerate_mask,
-                     ana.cond_schur_rot, ana.cond_schur_trans,
-                     ana.cond_full))
-        R_prev2, t_prev2, R_prev, t_prev = R_prev, t_prev, R, t
-    dev = frames.device
-    cols = [torch.stack(c) if torch.is_tensor(c[0])
-            else torch.tensor(c, device=dev) for c in zip(*outs)]
-    return OdometryResult(*cols)
+                   handling, params: OdometryParams,
+                   graphed: bool) -> OdometryResult:
+    F, N = frames.shape[:2]
+    loop = VoxelLoop(grid, N, detection, handling, params,
+                     ROW_BLOCK * -(-F // ROW_BLOCK), frames.device,
+                     frames.dtype)
+    run, S = graphs.bind(
+        loop, lambda S: loop.load(S, frames[0], frames_valid[0], T0),
+        graphed, "run_odometry", frames.device)
+    for f in range(F):
+        if f:
+            S.put("scan", frames[f])
+            S.put("scan_valid", frames_valid[f])
+        graphs.drive(run, S, params.icp_iterations)
+    return OdometryResult(*(getattr(S, f"out.{name}")[:F].clone()
+                            for name in OdometryResult._fields))
 
 
 def run_odometry(frames, map_xyz, T0=None,
@@ -172,17 +254,22 @@ def run_odometry(frames, map_xyz, T0=None,
                  handling="PRECONDITIONED_CG",
                  params: OdometryParams = OdometryParams(),
                  frames_valid=None, map_valid=None, voxel_size=None,
-                 device=None) -> OdometryResult:
+                 device=None, graph=None) -> OdometryResult:
     """Register a stream of body-frame scans (F, N, 3) against a prior
     map, frame by frame, seeded by the constant-velocity model from T0.
 
     ``map_xyz`` is the map (M, 3), indexed here at ``voxel_size``
     (default the search radius), or a ``VoxelGrid`` already built over
-    it.  detection / handling take the enums or their names.  Runs in
-    the frames' dtype on ``device`` (cuda unless told otherwise) and
-    returns stacked per-frame telemetry."""
+    it (read in place: a call with the same grid replays).
+    detection / handling take the enums or their names.  Runs in the
+    frames' dtype on ``device`` (cuda unless told otherwise) and returns
+    stacked per-frame telemetry: on the card each frame replays the CUDA
+    graphs of its parts (``VoxelLoop``), captured at the first call of
+    their statics; ``graph=False`` runs them eagerly, for checking only;
+    on the CPU they run eagerly and ``graph=True`` raises."""
     check_precise()
     dev = resolve_device(device)
+    graphed = graphs.use_graphs(dev, graph)
     if isinstance(detection, str):
         detection = DetectionMethod[detection]
     if isinstance(handling, str):
@@ -203,7 +290,7 @@ def run_odometry(frames, map_xyz, T0=None,
                                                 device=dev),
                                 voxel_size, valid=map_valid, device=dev)
     return _odometry_impl(frames, frames_valid, grid, T0, detection,
-                          handling, params)
+                          handling, params, graphed)
 
 
 class MapOdometryResult(NamedTuple):
@@ -220,11 +307,6 @@ class MapOdometryResult(NamedTuple):
     rmse: torch.Tensor              # (F,)
     fitness: torch.Tensor           # (F,)
     effective_points: torch.Tensor  # (F,) int32
-
-
-# the map loop's output rows are preallocated in blocks of this many
-# frames, so sequences of any length up to it share one capture
-ROW_BLOCK = 128
 
 
 class MapLoop:
@@ -301,23 +383,13 @@ def _odometry_map_impl(frames, map_xyz, mindex, T0, T_prev, detection,
     mloop = MapLoop(loop, use_constant_velocity, frame_analysis_fast,
                     ROW_BLOCK * -(-F // ROW_BLOCK))
 
-    def load(S):
-        mloop.load(S, frames[0], T0, T_prev)
-
-    if graphed:
-        run = graphs.CACHE.lookup(
-            mloop.key(), load,
-            lambda S: graphs.Graphs("run_odometry_map", S, mloop.parts(S),
-                                    device))
-        S = run.state
-    else:
-        S = graphs.State()
-        load(S)
-        run = graphs.run_eager(mloop.parts(S))
+    run, S = graphs.bind(mloop, lambda S: mloop.load(S, frames[0], T0,
+                                                     T_prev),
+                         graphed, "run_odometry_map", device)
     for f in range(F):
         if f:
             S.put("src", frames[f])
-        drive(run, S, params.max_iterations)
+        graphs.drive(run, S, params.max_iterations)
     return MapOdometryResult(*(getattr(S, f"out.{name}")[:F].clone()
                                for name in MapOdometryResult._fields))
 

@@ -262,6 +262,7 @@ def block_knn_keys(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
 
 
 block_knn_keys.launches = 0
+block_knn_keys.launches_replayed = 0  # those of them made by graph replays
 block_knn_keys.last_grid = None
 
 

@@ -271,6 +271,7 @@ def knn_candidates(query, target, pen, kk: int):
 
 
 knn_candidates.launches = 0
+knn_candidates.launches_replayed = 0  # those of them made by graph replays
 knn_candidates.launches_by_kk = {}     # the same launches, per kk
 knn_candidates.last_grid = None
 
@@ -358,6 +359,7 @@ def group_min(query, target, pen):
 
 
 group_min.launches = 0
+group_min.launches_replayed = 0  # those of them made by graph replays
 group_min.last_grid = None
 
 

@@ -21,6 +21,7 @@ no voxel holds more than ``capacity`` points).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +34,15 @@ from .knn_kernels import _exact_sq, _extract_k_smallest
 _NEIGHBORHOOD = np.stack(np.meshgrid(np.arange(-1, 2), np.arange(-1, 2),
                                      np.arange(-1, 2), indexing="ij"),
                          axis=-1).reshape(27, 3)
+_OFFSETS = tuple(map(tuple, _NEIGHBORHOOD.tolist()))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constant(values: tuple, device):
+    """An int64 tensor of ``values`` on ``device``, made once: a search
+    inside a captured CUDA graph builds no tensor from host data (the
+    capture's eager warm-up makes it)."""
+    return torch.as_tensor(values, dtype=torch.int64, device=device)
 
 
 class VoxelGrid(NamedTuple):
@@ -105,7 +115,7 @@ def voxel_knn(grid: VoxelGrid, query, k: int = 5, capacity: int = 32,
     (N, k) int64 into ``grid.points``); a missing neighbour carries +inf
     and index 0."""
     dev = query.device
-    offsets = torch.as_tensor(_NEIGHBORHOOD, device=dev)
+    offsets = _device_constant(_OFFSETS, dev)
     slot = torch.arange(capacity, device=dev)
     last = grid.sorted_idx.shape[0] - 1
     d_out, i_out = [], []
@@ -191,10 +201,10 @@ def grid_knn(grid: GridIndex, query, k: int = 5):
     takes the packed-key extraction, as the JAX module does."""
     dev = query.device
     nx, ny, nz = grid.dims
-    dims = torch.tensor(grid.dims, device=dev)
+    dims = _device_constant(tuple(grid.dims), dev)
     qc = torch.floor((query - grid.origin)
                      * (1.0 / grid.voxel_size)).long()
-    nb = qc[:, None, :] + torch.as_tensor(_NEIGHBORHOOD, device=dev)
+    nb = qc[:, None, :] + _device_constant(_OFFSETS, dev)
     in_grid = torch.all((nb >= 0) & (nb < dims), dim=-1)       # (N, 27)
     nbc = torch.minimum(torch.clamp(nb, min=0), dims - 1)
     flat = (nbc[..., 0] * ny + nbc[..., 1]) * nz + nbc[..., 2]
