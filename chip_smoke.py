@@ -42,9 +42,10 @@ sm_90a), then runs on the card:
      targets, 30% invalid, (h) the O3D engine's normal search (self
      query, k 30, kk 60) and (i) kk 128 (the moved cylinder against
      itself), and (j) (g)'s shapes at kk 128; each row prints the grids
-     the wrappers launched; and K2 alone captured in a CUDA graph and
-     replayed at (d) and (e), bit for bit, one launch counted per
-     replay;
+     the wrappers launched and the library pairs' times (K2: cdist +
+     topk; K3: cdist + amin over the 128-target groups); and K2 alone
+     captured in a CUDA graph and replayed at (d), (e) and (h), bit for
+     bit, one launch counted per replay;
   6. the pair harness on the 8,192-point synthetic cylinder (source ==
      target), f32, through the port's TestRunner, once with the CSR grid
      search and once with K2 as every iteration's search, for three
@@ -58,13 +59,15 @@ sm_90a), then runs on the card:
      O3D launching K2 at kk 60, and the two backends agreeing per method
      (iterations within 1, poses within 1e-4 m and 1e-3 deg: the final
      poses of a method that converged on both, the poses after
-     iteration 10 of any other); the SO(3) and Euler rows as CUDA graph
-     replays (the warm-up call captures), XICP, O3D and SuperLoc
-     eagerly; the graphed rows of the cylinder and Euler matrices rerun
-     eagerly (``TestRunner(graph=False)``) on each backend: equal
-     iterations and poses within 1e-6 m and 1e-6 rad, bit-equality
-     reported; one Ours, XICP and O3D run each under the profiler (the
-     host's launch calls per ICP iteration printed);
+     iteration 10 of any other); every row as CUDA graph replays (the
+     warm-up call captures), K2 counted from replays on every XICP, O3D
+     and SuperLoc row that searches with it; every row of every matrix
+     rerun eagerly (``TestRunner(graph=False)``) on each backend: equal
+     iterations, poses within 1e-6 m and 1e-6 rad, SuperLoc's record
+     fields equal, the SO(3) and Euler rows bit-equal (the others'
+     bit-equality reported); one Ours, XICP, XICP-EQ and O3D run each
+     under the profiler (the host's launch calls per ICP iteration
+     printed; under one for XICP-EQ and O3D);
   7. the ``kernels`` line: K1, K2 and K3 with their launches on each
      path (K2's including (8b) and (9c), and those of them from graph
      replays; K1's (10a) and (10b)), times, bounds and library times;
@@ -85,22 +88,29 @@ sm_90a), then runs on the card:
      radius the same neighbours (but for exact ties) at distances
      within 2 ulp; (8c) ``optimize_pose_graph`` on a 128-pose window of
      the ground truth (noisy odometry edges, one exact closure) in f32
-     on the card, gated on the last pose's drift falling at least 2x, a
-     final cost < 1 and poses within 1 mm of the same graph in f64 on
-     the CPU; (8d) the ground truth and both loops' trajectories through
+     on the card, graphed and eagerly in alternating order over three
+     rounds (ms per solve of each), gated on equal GN steps and
+     bit-equal poses and cost, the last pose's drift falling at least
+     2x, a final cost < 1 and poses within 1 mm of the same graph in f64
+     on the CPU; (8d) the ground truth and both loops' trajectories through
      TUM files and back (within 1e-6), gated on ATE RMSE < 3 cm and
      registration recall 1;
   9. the scale-out and the native runtime: (9a) ``sharded_icp_register``
      in a one-rank NCCL world, mesh 1 x 1, on 16 of phase 2's scans
      seeded as phase 2 seeds them, against the whole map in its kd-leaf
      order (128-point blocks), with the two-level and the flat cull,
-     caps 1.5x the largest relevance counts; gated on zero overflow,
-     every frame converged, translation error mean < 5 cm, max < 10 cm
-     and every position within 3 cm of phase 2's; ms per registration,
-     iterations, kernels per ICP iteration from a 2-frame profile, peak
-     device memory; (9b) four rank processes of this script, on the one
-     card over gloo (NCCL takes one rank per GPU; on a machine with four
-     cards, one rank per card over NCCL): a 2 x 2 mesh, dense
+     caps 1.5x the largest relevance counts, as CUDA graph replays with
+     both collectives captured and eagerly, in alternating order over
+     three rounds per cull; gated on equal iterations and bit-equal
+     poses between the two, zero overflow, every frame converged,
+     translation error mean < 5 cm, max < 10 cm and every position
+     within 3 cm of phase 2's; ms per registration of both modes,
+     iterations, kernels and launch calls per ICP iteration from a
+     2-frame graphed profile, peak device memory; (9b) four rank
+     processes of this script, on the one card over gloo (NCCL takes one
+     rank per GPU; on a machine with four cards, one rank per card over
+     NCCL; each rank prints whether it replayed graphs: eagerly over
+     gloo): a 2 x 2 mesh, dense
      (4,096 map points, 512 scan points) and culled (the map within 30 m
      of frame 0, frame 0's scan), the host mesh with LOCAL_WORLD_SIZE=2
      and ``assemble_sharded`` of phase 8c's window over data = 2; gated
@@ -133,9 +143,9 @@ sm_90a), then runs on the card:
      breaches are counted) and its error beside the JAX package's
      recorded row.
 
-Every registration of phases 2, 3, 4, 8a, 10a and 10b, and of phase 6's
-SO(3) and Euler rows, runs as CUDA graph replays; the ``graphs`` line
-counts the captures and their seconds.
+Every registration of phases 2, 3, 4, 6, 8a, 9a, 10a and 10b, and the
+pose graph of 8c, runs as CUDA graph replays; the ``graphs`` line counts
+the captures and their seconds.
 
 Every phase prints one JSON object on a line of its own; the last line is
 {"ok": true, "device": {...}}.  A failed phase raises, and the script
@@ -528,10 +538,6 @@ def check_k1_graph(name, a):
 
 EAGER_CHECK_FRAMES = 16
 EAGER_CHECK_ROUNDS = 3
-# phase 6's matrices rerun eagerly against their graphed runs
-EAGER_CHECK_MATRICES = ("cylinder", "euler")
-
-
 def rotation_diff_rad(R_a, R_b):
     """Angle of R_a^T R_b per leading index (float64, exact near 0)."""
     M = R_a.double().transpose(-1, -2) @ R_b.double()
@@ -717,8 +723,9 @@ def knn_bound(n, m, out_bytes):
 def check_knn(name, query, target, valid, k, kk):
     """K2 and K3 against their plain twins on the card, bit for bit on
     (val, idx) and on the group minima; the grids the wrappers launched;
-    times of both kernels, their twins, and for K2 the nearest library
-    pair (cdist + topk)."""
+    times of both kernels, their twins, and the nearest library pairs:
+    for K2 cdist + topk, for K3 cdist + amin over the 128-target
+    groups."""
     from dcreg_tpu_torch.ops import knn_kernels as kn
     n, m = query.shape[0], target.shape[0]
     pen = kn._penalty(m, valid, query.device)
@@ -736,14 +743,22 @@ def check_knn(name, query, target, valid, k, kk):
     if k2_bad or k3_bad:
         raise RuntimeError(f"{name}: K2 differs from its plain version in "
                            f"{k2_bad} entries, K3 in {k3_bad}")
+    # cdist's launch refuses 65,536 x 65,536 outputs, so the library pairs
+    # run over query chunks of 8,192 rows
+    chunks = lambda: (torch.cdist(
+        query[c0:c0 + 8192], target,
+        compute_mode="donot_use_mm_for_euclid_dist")
+        for c0 in range(0, n, 8192))
+    pad = (-m) % kn.GROUP
+
     def lib():
-        # cdist's launch refuses 65,536 x 65,536 outputs, so the library
-        # pair runs over query chunks of 8,192 rows
-        for c0 in range(0, n, 8192):
-            torch.topk(torch.cdist(
-                query[c0:c0 + 8192], target,
-                compute_mode="donot_use_mm_for_euclid_dist"), k, dim=1,
-                largest=False)
+        for d in chunks():
+            torch.topk(d, k, dim=1, largest=False)
+
+    def lib_k3():
+        for d in chunks():
+            d = torch.nn.functional.pad(d, (0, pad), value=float("inf"))
+            torch.amin(d.reshape(d.shape[0], -1, kn.GROUP), dim=2)
     k2 = {"ms": time_ms(lambda: kn.knn_candidates(query, target, pen, kk),
                         20),
           "plain_ms": time_ms(lambda: kn.knn_candidates_plain(
@@ -754,7 +769,8 @@ def check_knn(name, query, target, valid, k, kk):
     k3 = {"ms": time_ms(lambda: kn.group_min(query, target, pen), 20),
           "plain_ms": time_ms(lambda: kn.group_min_plain(query, target,
                                                           pen), 2),
-          "library_ms": None, "max_abs_err": k3_err, "mismatches": k3_bad,
+          "library_ms": time_ms(lib_k3, 1), "max_abs_err": k3_err,
+          "mismatches": k3_bad,
           "grid": kn.group_min.last_grid}
     k3.update(knn_bound(n, m, gmin.numel() * 4))
     emit({"phase": "knn_check", "shape": name, "N": n, "M": m, "k": k,
@@ -836,6 +852,7 @@ def knn_checks(seed, T0, device):
     if device != "cpu":
         check_k2_graph("d_self_5nn", cyl, cyl, None, 10)
         check_k2_graph("e_nn1", moved, cyl, None, 8)
+        check_k2_graph("h_normals_o3d", cyl, cyl, None, 60)
     kn.group_min.launches = 0
     dg, ig = kn.knn_grouped(big_q, f32(big), valid, k=5)
     k3_launches = kn.group_min.launches
@@ -910,9 +927,13 @@ def pair_harness(world, scenario, cfg, backend, device):
     temporary folder.  Gates: every artifact written, finite rows in
     all_results.csv, finite SuperLoc record fields, and in the cylinder
     matrix Ours converging with TE < 5 cm and RE < 0.5 deg and a
-    degenerate direction flagged at iteration 0.  Returns the per-method
-    summary (with each row's K2 launches in total and per kk) and the
-    run's K2 launches ({"total", "by_kk"})."""
+    degenerate direction flagged at iteration 0; on the card, K2 launched
+    from graph replays by every XICP, O3D and SuperLoc row that searches
+    with it, and under one ``cudaLaunchKernel`` call per ICP iteration in
+    the profile windows of XICP-EQ and O3D.  Returns the per-method
+    summary (with each row's K2 launches in total, per kk and from
+    replays) and the run's K2 launches ({"total", "replayed",
+    "by_kk"})."""
     import csv
     from dcreg_tpu_torch.harness import TestRunner
     from dcreg_tpu_torch.ops import knn_kernels as kn
@@ -927,13 +948,17 @@ def pair_harness(world, scenario, cfg, backend, device):
         kn.knn_candidates.launches_replayed = 0
         kn.knn_candidates.launches_by_kk = {}
         runner.load_point_clouds(world, world)
+        replayed = {}
         for name, det, hand in cfg.methods():
             before = dict(kn.knn_candidates.launches_by_kk)
+            before_replayed = kn.knn_candidates.launches_replayed
             runner.run_method(name, det, hand)
             per_method[name] = {
                 kk: n - before.get(kk, 0)
                 for kk, n in sorted(kn.knn_candidates.launches_by_kk.items())
                 if n > before.get(kk, 0)}
+            replayed[name] = (kn.knn_candidates.launches_replayed
+                              - before_replayed)
         runner.finalize_statistics()
         runner.save_results()
         seconds = time.perf_counter() - t0
@@ -959,6 +984,7 @@ def pair_harness(world, scenario, cfg, backend, device):
                 "time_mean_ms": s["time_mean"],
                 "k2_launches": sum(per_method[rec.method].values()),
                 "k2_launches_by_kk": per_method[rec.method],
+                "k2_launches_from_replays": replayed[rec.method],
                 "mask_iter0": [int(m) for m in
                                rec.result.log.degenerate_mask[0]],
                 "finite_rows": finite.get(rec.method, False),
@@ -994,12 +1020,22 @@ def pair_harness(world, scenario, cfg, backend, device):
             if "O3D" in summary and not \
                     summary["O3D"]["k2_launches_by_kk"].get(60):
                 raise RuntimeError("K2 was not launched at kk 60 by O3D")
+            # the baselines' K2 searches (the normals on both backends,
+            # SuperLoc's 5-NN on the brute-force one) come from replays
+            silent = [m for m, d in summary.items()
+                      if (m.startswith("XICP") or m == "O3D"
+                          or (m == "SuperLoc" and backend == "brute"))
+                      and d["k2_launches_from_replays"] <= 0]
+            if silent:
+                raise RuntimeError(f"K2 was not launched from graph replays "
+                                   f"by {silent} ({scenario}, {backend})")
         # one method run each under the profiler: Ours of the cylinder
-        # matrix on both backends, XICP and O3D where K2 is the search
+        # matrix on both backends, XICP, XICP-EQ and O3D where K2 is the
+        # search
         methods = {m: (d, h) for m, d, h in cfg.methods()}
         profiled = ["Ours"] if scenario == "cylinder" else []
         if backend == "brute":
-            profiled += ["XICP", "O3D"]
+            profiled += ["XICP", "XICP-EQ", "O3D"]
         for name in profiled:
             if name in methods:
                 # a warm call first: the window holds no capture
@@ -1009,8 +1045,12 @@ def pair_harness(world, scenario, cfg, backend, device):
                     f"pair_{name.lower()}_profile_{scenario}_{backend}",
                     lambda: held.update(r=runner.run_single_test(
                         name, *methods[name])))
-                emit(dict(prof, **launch_rates(
-                    prof, int(held["r"][0].iterations))))
+                rates = launch_rates(prof, int(held["r"][0].iterations))
+                emit(dict(prof, **rates))
+                if device != "cpu" and name in ("XICP-EQ", "O3D") and \
+                        rates["launch_calls_per_icp_iteration"] >= 1:
+                    raise RuntimeError(f"graphed {name} made {rates} kernel "
+                                       "launch calls per ICP iteration")
         return summary, launches
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -1031,18 +1071,19 @@ def launch_rates(prof, iterations):
                                         {}).get("count", 0)}
 
 
-def graphed_engine(name):
-    """Whether a row runs an engine the harness replays as CUDA
-    graphs (the SO(3) or the Euler engine); XICP, O3D and SuperLoc run
-    eagerly."""
+def so3_or_euler(name):
+    """Whether a row runs the SO(3) or the Euler engine, whose graphed
+    runs are held bit for bit against their eager reruns."""
     return not (name.startswith("XICP") or name in ("O3D", "SuperLoc"))
 
 
 def pair_eager_check(world, scenario, cfg, backend, summary, device):
-    """One eager run (``TestRunner(graph=False)``) of each graphed row of
-    a matrix against its graphed run in ``summary``: gated on equal
-    iterations and final poses within 1e-6 m and 1e-6 rad; bit-equality
-    of the whole result (the log too) and both times reported."""
+    """One eager run (``TestRunner(graph=False)``) of every row of a
+    matrix against its graphed run in ``summary``: gated on equal
+    iterations, final poses within 1e-6 m and 1e-6 rad, SuperLoc's
+    record fields equal, and the whole result (the log too) bit-equal
+    for the SO(3) and Euler rows (reported for the others); both times
+    reported."""
     from dcreg_tpu_torch.harness import TestRunner
     cfg = cfg._replace(output_folder="", use_grid_index=backend == "grid")
     runner = TestRunner(cfg, dtype=torch.float32, device=device,
@@ -1050,9 +1091,7 @@ def pair_eager_check(world, scenario, cfg, backend, summary, device):
     runner.load_point_clouds(world, world)
     rows = {}
     for name, det, hand in cfg.methods():
-        if not graphed_engine(name):
-            continue
-        ref, ms, _ = runner.run_single_test(name, det, hand)
+        ref, ms, info = runner.run_single_test(name, det, hand)
         out = summary[name]["record"].result
         dt = float(np.linalg.norm(np.asarray(out.t, np.float64)
                                   - np.asarray(ref.t, np.float64)))
@@ -1069,12 +1108,21 @@ def pair_eager_check(world, scenario, cfg, backend, summary, device):
                       "bit_equal": same,
                       "graphed_ms": summary[name]["time_mean_ms"],
                       "eager_ms": ms}
+        if info is not None:
+            sl = summary[name]["superloc"]
+            rows[name]["superloc_fields_equal"] = bool(
+                np.array_equal(sl["uncertainties"], info.uncertainties)
+                and all(sl[f] == float(getattr(info, f))
+                        for f in ("cond_full", "cond_rot", "cond_trans"))
+                and sl["is_degenerate"] == bool(info.is_degenerate))
     row = {"phase": f"pair_eager_vs_graphed_{scenario}_{backend}",
            "methods": rows}
     emit(row)
     bad = [m for m, r in rows.items()
            if r["iterations"][0] != r["iterations"][1]
-           or r["pose_diff_m"] > 1e-6 or r["rot_diff_rad"] > 1e-6]
+           or r["pose_diff_m"] > 1e-6 or r["rot_diff_rad"] > 1e-6
+           or not r.get("superloc_fields_equal", True)
+           or (so3_or_euler(m) and not r["bit_equal"])]
     if bad:
         raise RuntimeError(f"graphed method runs differ from eager ones: "
                            f"{bad}: {row}")
@@ -1138,9 +1186,8 @@ def run_pair(seed: int, device: str = "cuda"):
         for backend in ("grid", "brute"):
             runs[name, backend], launches[f"pair_{name}_{backend}"] = \
                 pair_harness(world, name, cfg, backend, device)
-            if name in EAGER_CHECK_MATRICES:
-                pair_eager_check(world, name, cfg, backend,
-                                 runs[name, backend], device)
+            pair_eager_check(world, name, cfg, backend, runs[name, backend],
+                             device)
         grid, brute = runs[name, "grid"], runs[name, "brute"]
         agree[name] = {m: backend_agreement(grid[m]["record"],
                                             brute[m]["record"])
@@ -1180,9 +1227,11 @@ def run_pair(seed: int, device: str = "cuda"):
           "launches_by_path": {"knn_grouped_check_f": k3_launches},
           "max_abs_err": max(r[1]["max_abs_err"] for r in rows.values()),
           "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-          "bound_by": f["bound_by"], "library_ms": None,
+          "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+          "library": "torch.cdist + torch.amin over 128-target groups",
           "shapes": {k: {g: v[1][g] for g in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "grid")}
+                                               "bound_by", "library_ms",
+                                               "grid")}
                      for k, v in rows.items()}}
     return k2, k3
 
@@ -1354,25 +1403,40 @@ def run_voxel(seed, ctx, device: str = "cuda"):
     i, j, Z, info, init = pose_graph_inputs(gt, seed + 8)
     dtype = torch.float32
 
-    def pg(dev, dt):
+    def pg(dev, dt, graph=None):
         edges = make_edges(i, j, torch.as_tensor(Z, dtype=dt), info=info,
                            device=dev)
         return optimize_pose_graph(torch.as_tensor(init, dtype=dt), edges,
-                                   device=dev)
+                                   device=dev, graph=graph)
 
     ref = pg("cpu", torch.float64)
     ref_p = ref.poses.numpy()
-    wall(lambda: pg(device, dtype))
-    out, pg_s = wall(lambda: pg(device, dtype))
+    wall(lambda: pg(device, dtype))                 # captures on the card
+    rounds, first = [], {}
+    for r in range(EAGER_CHECK_ROUNDS):
+        for graph in ((False, None) if r % 2 == 0 else (None, False)):
+            mode = "eager" if graph is False else "graphed"
+            res, sec = wall(lambda: pg(device, dtype, graph))
+            rounds.append({"round": r, "mode": mode, "ms": sec * 1e3,
+                           "gn_iterations": res.iterations})
+            first.setdefault(mode, res)
+    out, eager = first["graphed"], first["eager"]
     opt = out.poses.double().cpu().numpy()
     drift0 = float(np.linalg.norm(init[-1, :3, 3] - gt[-1, :3, 3]))
     drift1 = float(np.linalg.norm(opt[-1, :3, 3] - gt[-1, :3, 3]))
     vs_ref = float(np.linalg.norm(opt[:, :3, 3] - ref_p[:, :3, 3],
                                   axis=1).max())
+    ms = lambda mode: [x["ms"] for x in rounds if x["mode"] == mode]
     row = {"phase": "pose_graph", "window": int(gt.shape[0]),
            "edges": int(len(i)), "dtype": str(dtype).split(".")[-1],
            "gn_iterations": out.iterations, "converged": out.converged,
-           "ms": pg_s * 1e3, "final_cost": float(out.final_cost),
+           "ms": ms("graphed")[0], "graphed_ms": ms("graphed"),
+           "eager_ms": ms("eager"), "rounds": rounds,
+           "eager_same_iterations": eager.iterations == out.iterations,
+           "eager_bit_equal": bool(torch.equal(eager.poses, out.poses)
+                                   and torch.equal(eager.final_cost,
+                                                   out.final_cost)),
+           "final_cost": float(out.final_cost),
            "drift_before_m": drift0, "drift_after_m": drift1,
            "max_dist_to_cpu_f64_m": vs_ref,
            "cpu_f64_iterations": ref.iterations,
@@ -1380,7 +1444,8 @@ def run_voxel(seed, ctx, device: str = "cuda"):
            "phase8_s": since()}
     emit(row)
     if not (drift1 <= 0.5 * drift0 and row["final_cost"] < 1.0
-            and vs_ref < 1e-3):
+            and vs_ref < 1e-3 and row["eager_same_iterations"]
+            and row["eager_bit_equal"]):
         raise RuntimeError(f"pose graph gates failed: {row}")
 
     # ---- 8d. TUM files and trajectory scores ------------------------------
@@ -1535,13 +1600,14 @@ def sharded_rank(rank, world, init_method, workdir, device):
     from dcreg_tpu_torch.parallel import make_mesh
     from dcreg_tpu_torch.parallel.distributed import (init_distributed,
                                                       make_host_mesh)
+    from dcreg_tpu_torch.parallel.sharded import _use_graphs
     backend = rank_backend(device, world)
     if device == "cuda":
         torch.cuda.set_device(rank if backend == "nccl" else 0)
     init_distributed(init_method, world, rank, backend=backend)
     inp = np.load(os.path.join(workdir, "inputs.npz"))
     mesh = make_mesh(2, 2, device=device)
-    out = {}
+    out = {"graphed": np.array(int(_use_graphs(mesh, None)))}
     for name in ("dense", "culled"):
         for f, v in convert.sharded_result_to_numpy(
                 sharded_case(mesh, inp, name)).items():
@@ -1615,6 +1681,7 @@ def run_sharded(seed, ctx, device: str = "cuda"):
     from dcreg_tpu_torch.parallel import (make_mesh, shard_points,
                                           sharded_icp_register)
     from dcreg_tpu_torch.parallel.distributed import init_distributed
+    from dcreg_tpu_torch.parallel.sharded import _use_graphs
     world, gt, frames = ctx["world"], ctx["gt"], ctx["frames"]
     t_start = time.perf_counter()
     since = lambda: time.perf_counter() - t_start
@@ -1640,29 +1707,41 @@ def run_sharded(seed, ctx, device: str = "cuda"):
         G, GS = cull_caps(counts)
         params = ICPParams()
 
-        def register(f, super_size):
+        def register(f, super_size, graph=None):
             return sharded_icp_register(
                 mesh, src[f], tgt, seeds[f][:3, :3], seeds[f][:3, 3],
                 DetectionMethod.SCHUR_CONDITION_NUMBER,
                 HandlingMethod.PRECONDITIONED_CG, params, target_valid=tgt_v,
                 block_cull=True, block_size=SHARD_BLOCK, num_blocks=G,
-                super_size=super_size, num_supers=GS)
+                super_size=super_size, num_supers=GS, graph=graph)
 
-        def sweep(super_size, n=F):
-            return [register(f, super_size) for f in range(n)]
+        def sweep(super_size, n=F, graph=None):
+            return [register(f, super_size, graph) for f in range(n)]
 
-        wall(lambda: register(0, SHARD_SUPER))
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         rows = {}
         for name, sup in (("two_level", SHARD_SUPER), ("flat", 0)):
-            res, dt = wall(lambda: sweep(sup))
+            wall(lambda: register(0, sup))          # captures on the card
+            runs, first = [], {}
+            for r in range(EAGER_CHECK_ROUNDS):
+                for graph in ((False, None) if r % 2 == 0 else (None, False)):
+                    mode = "eager" if graph is False else "graphed"
+                    res, dt = wall(lambda: sweep(sup, graph=graph))
+                    runs.append({"round": r, "mode": mode,
+                                 "ms_per_registration": dt / F * 1e3})
+                    first.setdefault(mode, res)
+            res, eager = first["graphed"], first["eager"]
+            ms = lambda mode: [x["ms_per_registration"] for x in runs
+                               if x["mode"] == mode]
             pos = np.stack([r.t.double().cpu().numpy() for r in res])
             te = np.linalg.norm(pos - gt[:F, :3, 3], axis=1)
             vs_map = np.linalg.norm(pos - ctx["odom_poses"][:F, :3, 3],
                                     axis=1)
             rows[name] = (res, {
-                "ms_per_registration": dt / F * 1e3,
+                "ms_per_registration": ms("graphed")[0],
+                "graphed_ms_per_registration": ms("graphed"),
+                "eager_ms_per_registration": ms("eager"), "rounds": runs,
                 "iters_per_frame": float(np.mean([int(r.iterations)
                                                   for r in res])),
                 "converged_frac": float(np.mean([bool(r.converged)
@@ -1670,13 +1749,22 @@ def run_sharded(seed, ctx, device: str = "cuda"):
                 "block_overflow_max": max(int(r.block_overflow)
                                           for r in res),
                 "te_mean_m": float(te.mean()), "te_max_m": float(te.max()),
-                "max_dist_to_map_loop_m": float(vs_map.max())})
+                "max_dist_to_map_loop_m": float(vs_map.max()),
+                "eager_same_iterations": all(
+                    int(a.iterations) == int(b.iterations)
+                    for a, b in zip(res, eager)),
+                "eager_poses_bit_equal": all(
+                    torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+                    for a, b in zip(res, eager)),
+                "eager_bit_equal": all(bit_equal(a, b)
+                                       for a, b in zip(res, eager))})
         two, flat = rows["two_level"][0], rows["flat"][0]
         flat_vs_two = max(pose_diff(a.R.cpu(), a.t.cpu(), b.R.cpu(),
                                     b.t.cpu())[0] for a, b in zip(two, flat))
         row = {"phase": "sharded_register", "mesh": [1, 1],
-               "backend": backend, "frames": F,
-               "map_points": int(world.shape[0]),
+               "backend": backend,
+               "mode": "graphed" if _use_graphs(mesh, None) else "eager",
+               "frames": F, "map_points": int(world.shape[0]),
                "block_size": SHARD_BLOCK, "super_size": SHARD_SUPER,
                "num_blocks": G, "num_supers": GS,
                "most_relevant_blocks": max(c[0] for c in counts),
@@ -1686,20 +1774,23 @@ def run_sharded(seed, ctx, device: str = "cuda"):
                "peak_device_mem_gib": (torch.cuda.max_memory_allocated()
                                        / 2 ** 30 if device == "cuda"
                                        else None),
+               "graph_pools_mib": (graph_pools_mib() if device == "cuda"
+                                   else None),
                "phase9_s": since()}
         emit(row)
         if not all(v[1]["block_overflow_max"] == 0
                    and v[1]["converged_frac"] == 1.0
                    and v[1]["te_mean_m"] < 0.05 and v[1]["te_max_m"] < 0.10
                    and v[1]["max_dist_to_map_loop_m"] < 0.03
+                   and v[1]["eager_same_iterations"]
+                   and v[1]["eager_poses_bit_equal"]
                    for v in rows.values()):
             raise RuntimeError(f"sharded registration gates failed: {row}")
         prof = profile_window("sharded_register_profile",
                               lambda: sweep(SHARD_SUPER,
                                             SHARD_PROFILE_FRAMES))
         trips = sum(int(r.iterations) for r in two[:SHARD_PROFILE_FRAMES])
-        prof["icp_iterations"] = trips
-        prof["kernels_per_icp_iteration"] = prof["kernel_launches"] / trips
+        prof.update(launch_rates(prof, trips))
         prof["phase9_s"] = since()
         emit(prof)
         del tgt, tgt_v
@@ -1773,6 +1864,8 @@ def run_sharded(seed, ctx, device: str = "cuda"):
         row = {"phase": "sharded_multi_rank", "ranks": 4, "mesh": [2, 2],
                "backend": rank_backend(device, 4), "device": device,
                "cards": torch.cuda.device_count() if device == "cuda" else 0,
+               "rank_modes": ["graphed" if int(r["graphed"]) else "eager"
+                              for r in ranks],
                "host_rows": ranks[0]["host_rows"].tolist(),
                "culled_caps": [int(inp["culled.G"]), int(inp["culled.GS"])],
                "ranks_differ_in": differ, "spawn_and_run_s": spawn_s,

@@ -25,9 +25,13 @@ counts what the card ran (and ``launches_replayed`` the part of it that
 came from replays).
 
 Every loop class (``BatchLoop``, ``MapLoop``, ``PairLoop``,
-``EulerLoop``, ``VoxelLoop``) has ``key()`` and ``parts(state)``;
-``bind`` gives the runner of its parts and their state, and ``drive``
-runs one pass of the loop.
+``EulerLoop``, ``VoxelLoop``, ``XICPLoop``, ``O3DLoop``,
+``SuperLocLoop``, ``PoseGraphLoop``, ``ShardedLoop``) has ``key()`` and
+``parts(state)``; ``bind`` gives the runner of its parts and their
+state, and ``drive`` runs one pass of the loop (a loop with no ``step``
+part, as ``SuperLocLoop``, runs with ``max_iterations`` 0).  A loop
+whose parts hold collectives captures in ``capture_error_mode``
+"thread_local" (``ShardedLoop``).
 """
 from __future__ import annotations
 
@@ -147,9 +151,11 @@ class Graphs:
     pool and replayed in the order they were captured; ``state`` holds
     the tensors they read and write.  ``launches[name]`` is the kernel
     launches each replay of that part counts, ``seconds`` the warm-up
-    and capture time."""
+    and capture time; ``capture_error_mode`` goes to
+    ``torch.cuda.graph``."""
 
-    def __init__(self, label: str, state: State, parts: dict, device):
+    def __init__(self, label: str, state: State, parts: dict, device,
+                 capture_error_mode: str = "global"):
         self.state = state
         self.graphs = {}
         self.launches = {}
@@ -167,7 +173,8 @@ class Graphs:
             tally = collections.Counter()
             _RECORDING.append(tally)
             try:
-                with torch.cuda.graph(g, pool=pool):
+                with torch.cuda.graph(g, pool=pool,
+                                      capture_error_mode=capture_error_mode):
                     fn()
             except Exception as exc:
                 raise RuntimeError(f"CUDA graph capture of {label}, part "
@@ -199,6 +206,15 @@ class GraphCache:
     def __len__(self):
         return len(self._entries)
 
+    def __contains__(self, key):
+        return key in self._entries
+
+    def discard(self, key) -> None:
+        """Drop the entry of ``key``, if any."""
+        if isinstance(self._entries.pop(key, None), Graphs):
+            # a replay of it may still be queued on the card
+            torch.cuda.synchronize()
+
     def lookup(self, key, load, build):
         """The entry of ``key``, its inputs refilled by ``load(state)``.
         On a miss ``build(state)`` makes it from a fresh ``State`` that
@@ -228,13 +244,16 @@ def bind(loop, load, graphed: bool, label: str, device):
     """(run, state) of ``loop``: ``run(name)`` runs a part eagerly over a
     fresh ``State`` that ``load`` filled, or, ``graphed``, replays the
     cached graphs of ``loop.key()`` (captured on a miss, named ``label``
-    in a capture error) over their state, refilled by ``load``."""
+    in a capture error, in the loop's ``capture_error_mode`` if it has
+    one) over their state, refilled by ``load``."""
     if not graphed:
         state = State()
         load(state)
         return run_eager(loop.parts(state)), state
+    mode = getattr(loop, "capture_error_mode", "global")
     entry = CACHE.lookup(loop.key(), load,
-                         lambda s: Graphs(label, s, loop.parts(s), device))
+                         lambda s: Graphs(label, s, loop.parts(s), device,
+                                          mode))
     return entry, entry.state
 
 
@@ -256,4 +275,6 @@ def detached(tree):
     by its next call."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
+    if type(tree) is tuple:
+        return tuple(detached(v) for v in tree)
     return type(tree)(*(detached(v) for v in tree))

@@ -6,9 +6,9 @@ call on the device, timed on the host clock with the device
 synchronised; everything after is bookkeeping on numpy.  The engine of a
 row: O3D ``o3d_icp``, XICP* ``xicp_register``, SuperLoc
 ``superloc_register``, any other the SO(3) engine, or the Euler engine
-when ``use_so3_parameterization`` is false.  On the card the SO(3) and
-Euler engines replay CUDA graphs (the warm-up call of a row captures,
-the timed call replays); the XICP, O3D and SuperLoc engines run eagerly.
+when ``use_so3_parameterization`` is false.  On the card every engine
+replays CUDA graphs (the warm-up call of a row captures, the timed call
+replays).
 """
 from __future__ import annotations
 
@@ -55,9 +55,8 @@ class TestRunner:
     """Drives the configured method matrix over one frame pair on
     ``device`` (cuda unless told otherwise), in ``dtype``: by default f32
     on the card (which runs no f64 search) and f64 on the CPU.  ``graph``
-    goes to the SO(3) and Euler engines: None replays CUDA graphs on the
-    card, False runs them eagerly (for checking), True raises on the
-    CPU."""
+    goes to every row's engine: None replays CUDA graphs on the card,
+    False runs them eagerly (for checking), True raises on the CPU."""
 
     def __init__(self, config: Config, dtype=None, device=None, graph=None):
         self.config = config
@@ -102,7 +101,8 @@ class TestRunner:
         """fn(R, t) running the row's engine from the pose (R, t)."""
         cfg = self.config
         T_gt = self._tensor(cfg.gt_matrix())
-        common = dict(T_gt=T_gt, grid=self.grid, device=self.device)
+        common = dict(T_gt=T_gt, grid=self.grid, device=self.device,
+                      graph=self.graph)
         src, tgt = self.source, self.target
         if method_name == "O3D":
             return lambda R, t: o3d_icp(src, tgt, R, t, params, **common)
@@ -116,7 +116,7 @@ class TestRunner:
         engine = (icp_point_to_plane_so3 if cfg.use_so3_parameterization
                   else icp_point_to_plane_euler)
         return lambda R, t: engine(src, tgt, R, t, detection, handling,
-                                   params, graph=self.graph, **common)
+                                   params, **common)
 
     # -- single test ------------------------------------------------------
     def run_single_test(self, method_name: str, detection: DetectionMethod,

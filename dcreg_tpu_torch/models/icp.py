@@ -13,6 +13,7 @@ on the card and replayed (``graphs``); the host reads the done flag
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -231,7 +232,26 @@ def covariance_from_H(H_last, converged, dtype):
                        1e6 * eye)
 
 
-class PairLoop:
+class PairInputs:
+    """What the loops of the pair engines (``PairLoop``, ``EulerLoop``,
+    ``XICPLoop``, ``O3DLoop``, ``SuperLocLoop``) share: ``load`` copies
+    the per-call inputs into the state (source ``src``, ``R0``, ``t0``,
+    ``T_gt``), and ``parts`` names the loop's prologue, step (where it
+    has one) and epilogue over that state."""
+
+    def load(self, S, source_xyz, R0, t0, T_gt) -> None:
+        S.put("src", source_xyz)
+        S.put("R0", R0)
+        S.put("t0", t0)
+        S.put("T_gt", T_gt)
+
+    def parts(self, S) -> dict:
+        return {name: functools.partial(getattr(self, name), S)
+                for name in ("prologue", "step", "epilogue")
+                if hasattr(self, name)}
+
+
+class PairLoop(PairInputs):
     """One configuration of ``icp_point_to_plane_so3`` split into the
     parts of its compiled loop, each reading and writing a
     ``graphs.State`` in place:
@@ -270,12 +290,6 @@ class PairLoop:
                 str(self.dev), graphs.tensor_key(
                     self.target, self.grid, self.target_valid,
                     self.source_valid))
-
-    def load(self, S, source_xyz, R0, t0, T_gt) -> None:
-        S.put("src", source_xyz)
-        S.put("R0", R0)
-        S.put("t0", t0)
-        S.put("T_gt", T_gt)
 
     def prologue(self, S) -> None:
         dev = self.dev
@@ -346,11 +360,6 @@ class PairLoop:
         S.put("cov", covariance_from_H(H_last, S.conv, dtype))
         S.put("iterations", S.k.to(torch.int32))
 
-    def parts(self, S) -> dict:
-        return {"prologue": lambda: self.prologue(S),
-                "step": lambda: self.step(S),
-                "epilogue": lambda: self.epilogue(S)}
-
     def result(self, S) -> ICPResult:
         return ICPResult(R=S.R, t=S.t, converged=S.conv, aborted=S.abt,
                          iterations=S.iterations, covariance=S.cov,
@@ -383,17 +392,21 @@ def icp_point_to_plane_so3(source_xyz, target_xyz, R0, t0,
     same tensors replays); ``graph=False`` runs them eagerly, for
     checking only; on the CPU they run eagerly and ``graph=True``
     raises."""
-    return run_pair_loop(PairLoop, source_xyz, target_xyz, R0, t0,
-                         detection, handling, params, T_gt, target_valid,
-                         source_valid, num_source, grid, device, graph)
+    return run_pair_loop(
+        lambda target, N, dev, dtype: PairLoop(
+            target, N, detection, handling, params, target_valid,
+            source_valid, num_source, grid, dev, dtype),
+        source_xyz, target_xyz, R0, t0, T_gt, params.max_iterations, device,
+        graph)
 
 
-def run_pair_loop(cls, source_xyz, target_xyz, R0, t0, detection, handling,
-                  params, T_gt, target_valid, source_valid, num_source, grid,
-                  device, graph) -> ICPResult:
+def run_pair_loop(make, source_xyz, target_xyz, R0, t0, T_gt,
+                  max_iterations: int, device, graph):
     """A pair engine's call: the inputs on ``device`` in the source's
-    dtype, one pass of the loop class ``cls`` (``PairLoop`` or
-    ``EulerLoop``), replayed as graphs or run eagerly as ``graph`` and
+    dtype, one pass of the loop ``make(target, N, device, dtype)`` makes
+    (``PairLoop``, ``EulerLoop``, ``XICPLoop``, ``O3DLoop``,
+    ``SuperLocLoop``: a ``load(S, source, R0, t0, T_gt)``, its parts and
+    ``result(S)``), replayed as graphs or run eagerly as ``graph`` and
     the device say, and its result (copied out of a graph's state)."""
     check_precise()
     dev = resolve_device(device)
@@ -405,10 +418,9 @@ def run_pair_loop(cls, source_xyz, target_xyz, R0, t0, detection, handling,
     R0, t0 = as_dev(R0), as_dev(t0)
     T_gt = torch.eye(4, dtype=dtype, device=dev) if T_gt is None \
         else as_dev(T_gt)
-    loop = cls(target_xyz, source_xyz.shape[0], detection, handling, params,
-               target_valid, source_valid, num_source, grid, dev, dtype)
+    loop = make(target_xyz, source_xyz.shape[0], dev, dtype)
     run, S = graphs.bind(
         loop, lambda S: loop.load(S, source_xyz, R0, t0, T_gt), graphed,
-        cls.name, dev)
-    graphs.drive(run, S, params.max_iterations)
+        loop.name, dev)
+    graphs.drive(run, S, max_iterations)
     return graphs.detached(loop.result(S)) if graphed else loop.result(S)

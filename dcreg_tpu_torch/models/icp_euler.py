@@ -229,6 +229,9 @@ def icp_point_to_plane_euler(source_xyz, target_xyz, R0, t0,
     ``device`` (cuda unless told otherwise), as CUDA graph replays of its
     parts (``EulerLoop``) on the card unless ``graph=False``; on the CPU
     eagerly, where ``graph=True`` raises."""
-    return run_pair_loop(EulerLoop, source_xyz, target_xyz, R0, t0,
-                         detection, handling, params, T_gt, target_valid,
-                         source_valid, num_source, grid, device, graph)
+    return run_pair_loop(
+        lambda target, N, dev, dtype: EulerLoop(
+            target, N, detection, handling, params, target_valid,
+            source_valid, num_source, grid, dev, dtype),
+        source_xyz, target_xyz, R0, t0, T_gt, params.max_iterations, device,
+        graph)

@@ -10,8 +10,10 @@ Gauss-Newton with a right perturbation on every pose: the edge residuals
 and Jacobians are batched tensor ops over the edges, the (6W, 6W) normal
 system is scatter-added from 6x6 blocks (W is a window of at most a few
 hundred poses, so the system is dense), and each step solves it by
-block-Jacobi-preconditioned CG.  A strong prior on pose 0 fixes the
-gauge.
+block-Jacobi-preconditioned CG, the JAX ``fori_loop``'s masked trips.  A
+strong prior on pose 0 fixes the gauge.  The GN loop is a prologue, a
+step and an epilogue (``PoseGraphLoop``), replayed as CUDA graphs on
+the card (``graphs``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..ops import linalg, se3
 from ..utils import check_precise, resolve_device
 
@@ -116,9 +119,10 @@ def _assemble(poses, edges: PoseGraphEdges, prior_idx, prior_T, prior_info):
 
 def _block_jacobi_pcg(H, g, W, iters: int = 64, damping: float = 1e-8):
     """CG on (H + damping I) x = g with the inverses of H's 6x6 diagonal
-    blocks as preconditioner; ``iters`` trips at most.  After the trip
-    that meets the residual bound every further trip would leave x as it
-    is, so the loop stops there."""
+    blocks as preconditioner: ``iters`` trips, the JAX body's masked
+    ones.  From the trip that meets the residual bound (or meets a
+    vanishing p.Hp) on, ``alpha`` is 0 and r, z, p and rz are kept, so x
+    stays as that trip left it, with no host read."""
     n = 6 * W
     dtype, dev = H.dtype, H.device
     H = H + damping * torch.eye(n, dtype=dtype, device=dev)
@@ -138,35 +142,106 @@ def _block_jacobi_pcg(H, g, W, iters: int = 64, damping: float = 1e-8):
     p = z
     rz = r @ z
     thresh = 1e-10 * torch.clamp(torch.linalg.norm(g), min=1e-30)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
         Hp = H @ p
         pHp = p @ Hp
         safe = torch.abs(pHp) > 1e-30
-        alpha = torch.where(safe, rz / torch.where(safe, pHp, 1.0), 0.0)
+        alpha = torch.where(safe & ~done, rz / torch.where(safe, pHp, 1.0),
+                            0.0)
         x = x + alpha * p
-        r = r - alpha * Hp
-        z = applyP(r)
-        rz_new = r @ z
+        r_new = r - alpha * Hp
+        z_new = applyP(r_new)
+        rz_new = r_new @ z_new
         rz_ok = torch.abs(rz) > 1e-30
         beta = torch.where(rz_ok, rz_new / torch.where(rz_ok, rz, 1.0), 0.0)
-        p = z + beta * p
-        rz = rz_new
-        if bool((torch.linalg.norm(r) <= thresh) | ~safe):
-            break
+        p_new = z_new + beta * p
+        now = done | (torch.linalg.norm(r_new) <= thresh) | ~safe
+        r = torch.where(done, r, r_new)
+        z = torch.where(done, z, z_new)
+        p = torch.where(done, p, p_new)
+        rz = torch.where(done, rz, rz_new)
+        done = now
     return x
+
+
+class PoseGraphLoop:
+    """One configuration of ``optimize_pose_graph`` split into the parts
+    of its compiled loop over a ``graphs.State`` (as ``icp.PairLoop``):
+    ``load`` copies the window, the edges and the priors into the state;
+    the ``prologue`` sets the poses, the step counter ``k`` and the
+    ``done`` flag; the ``step`` is one GN step (``_assemble``, the
+    masked block-Jacobi CG, the finiteness guard, the retraction) and
+    sets ``done`` (converged) once |dx| < tol W; the ``epilogue`` the
+    final cost.  Every
+    tensor is copied in, so ``key()`` holds statics only."""
+
+    name = "optimize_pose_graph"
+
+    def __init__(self, W: int, E: int, P: int, cg_iters: int, tol: float,
+                 device, dtype):
+        self.W, self.E, self.P = W, E, P
+        self.cg_iters, self.tol = cg_iters, tol
+        self.dev, self.dtype = device, dtype
+
+    def key(self) -> tuple:
+        return (self.name, self.W, self.E, self.P, self.cg_iters, self.tol,
+                str(self.dtype), str(self.dev))
+
+    def load(self, S, poses0, edges: PoseGraphEdges, prior_idx, prior_T,
+             prior_info) -> None:
+        S.put("poses0", poses0)
+        S.put_tuple("edges", edges)
+        S.put("prior_idx", prior_idx)
+        S.put("prior_T", prior_T)
+        S.put("prior_info", prior_info)
+
+    def _system(self, S, poses):
+        return _assemble(poses, S.get_tuple("edges", PoseGraphEdges),
+                         S.prior_idx, S.prior_T, S.prior_info)
+
+    def prologue(self, S) -> None:
+        S.put("poses", S.poses0)
+        S.put("k", torch.zeros((), dtype=torch.int64, device=self.dev))
+        S.put("done", torch.zeros((), dtype=torch.bool, device=self.dev))
+
+    def step(self, S) -> None:
+        W = self.W
+        H, g, _ = self._system(S, S.poses)
+        dx = _block_jacobi_pcg(H, g, W, iters=self.cg_iters)
+        dx = torch.where(torch.all(torch.isfinite(dx)), dx,
+                         torch.zeros_like(dx))
+        R, t = se3.boxplus(S.poses[:, :3, :3], S.poses[:, :3, 3],
+                           dx.reshape(W, 6))
+        S.put("poses", se3.se3_matrix(R, t))
+        S.put("done", torch.linalg.norm(dx) < self.tol * W)
+        S.put("k", S.k + 1)
+
+    def epilogue(self, S) -> None:
+        S.put("final_cost", self._system(S, S.poses)[2])
+
+    def parts(self, S) -> dict:
+        return {"prologue": lambda: self.prologue(S),
+                "step": lambda: self.step(S),
+                "epilogue": lambda: self.epilogue(S)}
 
 
 def optimize_pose_graph(poses0, edges: PoseGraphEdges, prior_idx=None,
                         prior_T=None, prior_info=None,
                         max_gn_iters: int = 10, cg_iters: int = 64,
-                        tol: float = 1e-8, device=None) -> PoseGraphResult:
+                        tol: float = 1e-8, device=None,
+                        graph=None) -> PoseGraphResult:
     """Gauss-Newton over a window of poses (W, 4, 4), in their dtype, on
     ``device`` (cuda unless told otherwise).  Without priors, pose 0 is
     pinned at its initial value with information 1e8 I (the gauge).  Stops
     after ``max_gn_iters`` steps or at a step with |dx| < tol W; a step
-    that is not finite is dropped."""
+    that is not finite is dropped.  On the card the steps (``PoseGraphLoop``)
+    replay CUDA graphs, with one host read per step; ``graph=False`` runs
+    them eagerly, and on the CPU they run eagerly and ``graph=True``
+    raises."""
     check_precise()
     dev = resolve_device(device)
+    graphed = graphs.use_graphs(dev, graph)
     poses = torch.as_tensor(poses0, device=dev)
     dtype = poses.dtype
     W = poses.shape[0]
@@ -182,20 +257,16 @@ def optimize_pose_graph(poses0, edges: PoseGraphEdges, prior_idx=None,
         prior_idx = torch.as_tensor(prior_idx, device=dev).long()
         prior_T = torch.as_tensor(prior_T, dtype=dtype, device=dev)
         prior_info = torch.as_tensor(prior_info, dtype=dtype, device=dev)
-    it, converged = 0, False
-    while it < max_gn_iters and not converged:
-        H, g, _ = _assemble(poses, edges, prior_idx, prior_T, prior_info)
-        dx = _block_jacobi_pcg(H, g, W, iters=cg_iters)
-        dx = torch.where(torch.all(torch.isfinite(dx)), dx,
-                         torch.zeros_like(dx))
-        R, t = se3.boxplus(poses[:, :3, :3], poses[:, :3, 3],
-                           dx.reshape(W, 6))
-        poses = se3.se3_matrix(R, t)
-        converged = bool(torch.linalg.norm(dx) < tol * W)
-        it += 1
-    _, _, final_cost = _assemble(poses, edges, prior_idx, prior_T, prior_info)
-    return PoseGraphResult(poses=poses, iterations=it, final_cost=final_cost,
-                           converged=converged)
+    loop = PoseGraphLoop(W, edges.i.shape[0], prior_idx.shape[0], cg_iters,
+                         tol, dev, dtype)
+    run, S = graphs.bind(
+        loop, lambda S: loop.load(S, poses, edges, prior_idx, prior_T,
+                                  prior_info), graphed, loop.name, dev)
+    graphs.drive(run, S, max_gn_iters)
+    copy = graphs.detached if graphed else (lambda x: x)
+    return PoseGraphResult(poses=copy(S.poses), iterations=int(S.k),
+                           final_cost=copy(S.final_cost),
+                           converged=bool(S.done))
 
 
 def assemble_sharded(mesh, poses, edges: PoseGraphEdges, prior_idx, prior_T,

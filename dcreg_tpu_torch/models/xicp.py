@@ -27,6 +27,11 @@ remapping matrix or the per-direction projections.
 The reference's engine never resets its correspondence count and plane
 error across iterations, so its logged fitness is cumulative (> 1) and
 its rmse a running average; both are reproduced.
+
+The JAX ``jit`` over a ``while_loop`` is a prologue (the target
+normals), a step (one iteration and its packed log row at a device-side
+counter) and an epilogue (``XICPLoop``), replayed as CUDA graphs on the
+card (``graphs``).
 """
 from __future__ import annotations
 
@@ -35,13 +40,14 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..config import XICPParamsConfig
 from ..ops import linalg, se3
 from ..ops.degeneracy import DetectionMethod, HandlingMethod
 from ..ops.normals import estimate_normals
-from ..utils import check_precise, resolve_device
 from . import logpack
-from .icp import ICPParams, ICPResult, log_from_buffer
+from .icp import (ICPParams, ICPResult, IterationLog, PairInputs,
+                  log_from_buffer, run_pair_loop)
 from .o3d_style import nearest
 
 
@@ -304,52 +310,76 @@ def _solve_projection(H, b, det: XICPDetection, use_remap_matrix):
     return torch.cat([d_rot, d_trans])
 
 
-def xicp_register(source_xyz, target_xyz, R0, t0,
-                  detection: DetectionMethod, handling: HandlingMethod,
-                  params: ICPParams = ICPParams(),
-                  xicp_cfg: XICPParamsConfig = XICPParamsConfig(),
-                  T_gt=None, target_valid=None, source_valid=None,
-                  num_source: int | None = None, normal_k: int = 5,
-                  grid=None, device=None) -> ICPResult:
-    """X-ICP registration of one frame pair.  ``grid``: an optional
-    GridIndex over the target (voxel >= search radius, validity baked in)
-    in place of the brute 1-NN scan.  Runs on ``device`` (cuda unless
-    told otherwise)."""
-    if grid is not None and target_valid is not None:
-        raise ValueError("bake target_valid into the GridIndex instead")
-    check_precise()
-    dev = resolve_device(device)
-    source_xyz = torch.as_tensor(source_xyz, device=dev)
-    dtype = source_xyz.dtype
-    as_dev = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
-    target_xyz = as_dev(target_xyz)
-    R, t = as_dev(R0), as_dev(t0)
-    T_gt = torch.eye(4, dtype=dtype, device=dev) if T_gt is None \
-        else as_dev(T_gt)
-    I = params.max_iterations
-    denom = float(num_source if num_source is not None
-                  else source_xyz.shape[0])
-    target_normals = estimate_normals(target_xyz, k=normal_k,
-                                      valid=target_valid, chunk=params.chunk)
-    inequality = detection == DetectionMethod.XICP_INEQUALITY
-    use_remap = detection == DetectionMethod.XICP_SOLUTION_REMAPPING
+class XICPLoop(PairInputs):
+    """One configuration of ``xicp_register`` split into the parts of its
+    compiled loop over a ``graphs.State`` (as ``icp.PairLoop``):
 
-    buf = logpack.empty_buffer(I, dtype, dev)
-    cum_cnt = torch.zeros((), dtype=dtype, device=dev)
-    cum_err = torch.zeros((), dtype=dtype, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    aborted = torch.zeros((), dtype=torch.bool, device=dev)
-    H_last = torch.eye(6, dtype=dtype, device=dev)
-    k = 0
-    while k < I and not bool(converged | aborted):   # one host sync
-        src_w = source_xyz @ R.T + t
-        sq_d, idx = nearest(src_w, target_xyz, target_valid, params.chunk,
-                            grid)
+      * ``load`` copies the per-call inputs: ``src``, ``R0``, ``t0``,
+        ``T_gt``;
+      * ``prologue`` the target normals (K2 at kk ``2 normal_k`` on the
+        brute-force backend), the running count and error, the flags,
+        ``H_last``, the empty log buffer and the iteration counter ``k``;
+      * ``step`` one iteration, its packed log row written at ``k``
+        through a comparison mask, and the ``done`` flag;
+      * ``epilogue`` the covariance from ``H_last`` and the structured
+        log.
+
+    ``key()`` holds every static the parts bake in and the address and
+    layout of the tensors they read in place (the target, the grid, the
+    validity masks)."""
+
+    name = "xicp_register"
+
+    def __init__(self, target_xyz, N: int, detection: DetectionMethod,
+                 handling: HandlingMethod, params: ICPParams,
+                 xicp_cfg: XICPParamsConfig, target_valid, source_valid,
+                 num_source, normal_k: int, grid, device, dtype):
+        self.target, self.grid = target_xyz, grid
+        self.target_valid, self.source_valid = target_valid, source_valid
+        self.N, self.normal_k = N, normal_k
+        self.denom = float(num_source if num_source is not None else N)
+        self.detection, self.handling = detection, handling
+        self.params, self.cfg = params, xicp_cfg
+        self.dev, self.dtype = device, dtype
+
+    def key(self) -> tuple:
+        return (self.name, self.N, self.denom, self.normal_k, self.detection,
+                self.handling, self.params, self.cfg, str(self.dtype),
+                str(self.dev), graphs.tensor_key(
+                    self.target, self.grid, self.target_valid,
+                    self.source_valid))
+
+    def prologue(self, S) -> None:
+        dtype, dev = self.dtype, self.dev
+        S.put("normals", estimate_normals(self.target, k=self.normal_k,
+                                          valid=self.target_valid,
+                                          chunk=self.params.chunk))
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        S.put("R", S.R0)
+        S.put("t", S.t0)
+        S.put("cum_cnt", zero)
+        S.put("cum_err", zero)
+        S.put("conv", false)
+        S.put("abt", false)
+        S.put("done", false)
+        S.put("H_last", torch.eye(6, dtype=dtype, device=dev))
+        S.put("buf", logpack.empty_buffer(self.params.max_iterations, dtype,
+                                          dev))
+        S.put("k", torch.zeros((), dtype=torch.int64, device=dev))
+
+    def step(self, S) -> None:
+        params, cfg, dtype = self.params, self.cfg, self.dtype
+        detection = self.detection
+        R, t = S.R, S.t
+        src_w = S.src @ R.T + t
+        sq_d, idx = nearest(src_w, self.target, self.target_valid,
+                            params.chunk, self.grid)
         mask = sq_d < params.corr.search_radius ** 2
-        if source_valid is not None:
-            mask = mask & source_valid
-        normals = target_normals[idx]
-        tgt = target_xyz[idx]
+        if self.source_valid is not None:
+            mask = mask & self.source_valid
+        normals = S.normals[idx]
+        tgt = self.target[idx]
         w = mask.to(dtype)
         # H = sum f f^T with f = [p x n; n]
         F = torch.cat([torch.linalg.cross(src_w, normals, dim=-1), normals],
@@ -360,23 +390,27 @@ def xicp_register(source_xyz, target_xyz, R0, t0,
         b = -(Fw.T @ dot)
         n_valid = torch.sum(mask)
         err_sum = torch.sum(w * dot * dot)
-        cum_cnt = cum_cnt + n_valid.to(dtype)
-        cum_err = cum_err + err_sum
+        cum_cnt = S.cum_cnt + n_valid.to(dtype)
+        cum_err = S.cum_err + err_sum
         rmse = torch.sqrt(cum_err / torch.clamp(cum_cnt, min=1.0))
-        fitness = cum_cnt / denom
+        fitness = cum_cnt / self.denom
 
         if detection == DetectionMethod.XICP_OPTIMIZED_EQUALITY:
-            det = detect_optimized(src_w, normals, H, mask, xicp_cfg)
+            det = detect_optimized(src_w, normals, H, mask, cfg)
         elif detection in (DetectionMethod.XICP_EQUALITY,
                            DetectionMethod.XICP_INEQUALITY):
-            det = detect_ternary(src_w, tgt, normals, H, mask, inequality,
-                                 xicp_cfg)
+            det = detect_ternary(src_w, tgt, normals, H, mask,
+                                 detection == DetectionMethod.XICP_INEQUALITY,
+                                 cfg)
         else:
-            det = detect_solution_remapping(H, xicp_cfg)
-        if handling == HandlingMethod.XICP_CONSTRAINT:
-            dx = _solve_constraint(H, b, det, inequality, xicp_cfg)
+            det = detect_solution_remapping(H, cfg)
+        if self.handling == HandlingMethod.XICP_CONSTRAINT:
+            dx = _solve_constraint(
+                H, b, det, detection == DetectionMethod.XICP_INEQUALITY, cfg)
         else:
-            dx = _solve_projection(H, b, det, use_remap)
+            dx = _solve_projection(
+                H, b, det,
+                detection == DetectionMethod.XICP_SOLUTION_REMAPPING)
 
         too_few = n_valid < params.min_effective_points
         abort_now = too_few | ~torch.all(torch.isfinite(dx))
@@ -385,33 +419,68 @@ def xicp_register(source_xyz, target_xyz, R0, t0,
         R = torch.where(abort_now, R, R_new)
         t = torch.where(abort_now, t, t_new)
         T_new = se3.se3_matrix(R, t)
-        te, re = se3.pose_error(T_gt, T_new)
+        te, re = se3.pose_error(S.T_gt, T_new)
         mask6 = torch.cat([~det.loc_rot, ~det.loc_trans])
         wf, _ = linalg.symmetric_eigh(H)
-        buf[k] = logpack.pack_row(
-            dtype, dev, executed=~too_few, effective_points=n_valid,
+        row = logpack.pack_row(
+            dtype, self.dev, executed=~too_few, effective_points=n_valid,
             corr_num=det.n_high_rot, rmse=rmse, fitness=fitness,
             objective=0.5 * err_sum, gradient=-b, dx=dx, transform=T_new,
             trans_error=te, rot_error_deg=re, eigenvalues_full=wf,
             singular_values=torch.flip(torch.abs(wf), (0,)),
             cond_full=linalg.condition_number(wf),
             is_degenerate=torch.any(mask6), degenerate_mask=mask6, H=H)
-        converged = (torch.linalg.norm(dx[:3])
-                     < params.convergence_thresh_rot) & \
-            (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans) \
+        S.put_row("buf", S.k, row, params.max_iterations)
+        conv = (torch.linalg.norm(dx[:3]) < params.convergence_thresh_rot) \
+            & (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans) \
             & ~abort_now
-        aborted = abort_now
-        H_last = torch.where(abort_now, H_last, H)
-        k += 1
+        S.put("R", R)
+        S.put("t", t)
+        S.put("cum_cnt", cum_cnt)
+        S.put("cum_err", cum_err)
+        S.put("H_last", torch.where(abort_now, S.H_last, H))
+        S.put("conv", conv)
+        S.put("abt", abort_now)
+        S.put("k", S.k + 1)
+        S.put("done", conv | abort_now)
 
-    w_h, V_h = linalg.symmetric_eigh(H_last)
-    invertible = torch.amin(torch.abs(w_h)) > 1e-12
-    w_inv = 1.0 / torch.where(torch.abs(w_h) > 1e-12, w_h,
-                              torch.ones_like(w_h))
-    cov = (V_h * w_inv[None, :]) @ V_h.T
-    cov = torch.where(converged & invertible, cov,
-                      1e6 * torch.eye(6, dtype=dtype, device=dev))
-    return ICPResult(R=R, t=t, converged=converged, aborted=aborted,
-                     iterations=torch.tensor(k, dtype=torch.int32,
-                                             device=dev),
-                     covariance=cov, log=log_from_buffer(buf))
+    def epilogue(self, S) -> None:
+        dtype, dev = self.dtype, self.dev
+        w_h, V_h = linalg.symmetric_eigh(S.H_last)
+        invertible = torch.amin(torch.abs(w_h)) > 1e-12
+        w_inv = 1.0 / torch.where(torch.abs(w_h) > 1e-12, w_h,
+                                  torch.ones_like(w_h))
+        cov = (V_h * w_inv[None, :]) @ V_h.T
+        S.put("cov", torch.where(S.conv & invertible, cov,
+                                 1e6 * torch.eye(6, dtype=dtype, device=dev)))
+        S.put("iterations", S.k.to(torch.int32))
+        S.put_tuple("log", log_from_buffer(S.buf))
+
+    def result(self, S) -> ICPResult:
+        return ICPResult(R=S.R, t=S.t, converged=S.conv, aborted=S.abt,
+                         iterations=S.iterations, covariance=S.cov,
+                         log=S.get_tuple("log", IterationLog))
+
+
+def xicp_register(source_xyz, target_xyz, R0, t0,
+                  detection: DetectionMethod, handling: HandlingMethod,
+                  params: ICPParams = ICPParams(),
+                  xicp_cfg: XICPParamsConfig = XICPParamsConfig(),
+                  T_gt=None, target_valid=None, source_valid=None,
+                  num_source: int | None = None, normal_k: int = 5,
+                  grid=None, device=None, graph=None) -> ICPResult:
+    """X-ICP registration of one frame pair.  ``grid``: an optional
+    GridIndex over the target (voxel >= search radius, validity baked in)
+    in place of the brute 1-NN scan.  Runs on ``device`` (cuda unless
+    told otherwise); on the card the loop's parts (``XICPLoop``) replay
+    CUDA graphs, ``graph=False`` runs them eagerly, and on the CPU they
+    run eagerly and ``graph=True`` raises (as ``icp_point_to_plane_so3``).
+    """
+    if grid is not None and target_valid is not None:
+        raise ValueError("bake target_valid into the GridIndex instead")
+    return run_pair_loop(
+        lambda target, N, dev, dtype: XICPLoop(
+            target, N, detection, handling, params, xicp_cfg, target_valid,
+            source_valid, num_source, normal_k, grid, dev, dtype),
+        source_xyz, target_xyz, R0, t0, T_gt, params.max_iterations, device,
+        graph)

@@ -14,6 +14,7 @@ covariance, noise included, is the JAX module's bit for bit there.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import knn as knn_mod
@@ -57,7 +58,7 @@ def estimate_normals(points, k: int = 5, valid=None, viewpoint=None,
         n32 = neigh.to(torch.float32)
         mu = _seq_sum(n32) * (1.0 / k)
         mm = (mu[:, :, None] * mu[:, None, :]).double()
-        inv_k = float(torch.tensor(1.0 / k, dtype=torch.float32))
+        inv_k = float(np.float32(1.0 / k))
         cov = (_seq_gram(n32).double() * inv_k - mm).to(torch.float32)
         cov = cov.to(points.dtype)
     else:

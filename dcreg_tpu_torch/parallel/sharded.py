@@ -27,7 +27,9 @@ two collectives per iteration:
 
 The 6x6 analysis, the solve and the pose update are replicated, so every
 rank returns the same ``ShardedICPResult``.  Selections keep
-``lax.top_k``'s order: equal values go to the lower index.
+``lax.top_k``'s order: equal values go to the lower index.  On an NCCL
+mesh on the card the loop (``ShardedLoop``), collectives included, is
+replayed as CUDA graphs (``graphs``); gloo meshes run it eagerly.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import graphs
 from ..models.icp import ICPParams
 from ..ops import se3
 from ..ops.correspondence import correspondence_tail
@@ -132,9 +135,14 @@ def _all_reduce(mesh: Mesh, x):
 
 
 def _all_gather(mesh: Mesh, x):
-    """(n_map, *x.shape): every map shard's ``x``, in mesh order."""
-    out = [torch.empty_like(x) for _ in mesh.map_slots]
-    dist.all_gather(out, x, group=mesh.map)
+    """(n_map, *x.shape): every map shard's ``x``, in mesh order.  One
+    output tensor (``all_gather_into_tensor``), which a CUDA graph's
+    capture of an NCCL gather takes where the list form allocates per
+    call."""
+    n = len(mesh.map_slots)
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=mesh.map)
+    out = out.reshape((n,) + tuple(x.shape))
     return torch.stack([out[s] for s in mesh.map_slots])
 
 
@@ -299,83 +307,108 @@ def _shard(x, k: int, shards: int, dev, dtype=None):
                            device=dev)
 
 
-def sharded_icp_register(mesh: Mesh, source_xyz, target_xyz, R0, t0,
-                         detection: DetectionMethod,
-                         handling: HandlingMethod,
-                         params: ICPParams = ICPParams(),
-                         T_gt=None, source_valid=None, target_valid=None,
-                         block_cull: bool = True, block_size: int = 32,
-                         num_blocks: int = 16, super_size: int = 0,
-                         num_supers: int = 8) -> ShardedICPResult:
-    """Full degeneracy-aware point-to-plane ICP, sharded over ``mesh``.
+class ShardedLoop:
+    """One configuration of ``sharded_icp_register`` on one rank, split
+    into the parts of its compiled loop over a ``graphs.State`` (as
+    ``models/icp.PairLoop``): ``load`` copies this rank's source shard,
+    the validity of it and of the map shard and the initial pose into
+    the state; the ``prologue``
+    sums the valid source points over ``data`` (a collective), builds the
+    map shard's block boxes and sets the pose, the flags, the histories
+    and the counter ``k``; the ``step`` is one iteration with both of its
+    collectives (the map-axis gather and the float64 data-axis sum), the
+    history rows at ``k`` and ``done``, which every rank computes from the
+    same reduced values; the ``epilogue`` the counts as int32.  The map
+    shard's points are read in place: ``key()`` holds their address and
+    layout, the statics and the mesh's two process groups.
 
-    Every rank of the mesh calls it with the same global padded arrays:
-    source_xyz (N, 3) with N divisible by mesh.shape['data'], target_xyz
-    (M, 3) with M divisible by mesh.shape['map'] (and, with
-    ``block_cull``, by map * block_size -- use ``shard_points(...,
-    block=block_size)``); pads are marked by the validity masks.  Each
-    rank takes its own rows to ``mesh.device``; the dtype is the
-    source's.  Returns the same ShardedICPResult on every rank.
+    An NCCL collective under capture leaves ProcessGroupNCCL's watchdog
+    thread querying CUDA events meanwhile, which a ``global`` capture
+    forbids in every thread; so this loop captures in ``thread_local``
+    mode, which confines the check to the capturing thread."""
 
-    block_cull: search each map shard through ``block_size``-point
-    bounding-box blocks, at most ``num_blocks`` relevant blocks per
-    128-query block (exact within the correspondence radius; the target
-    should be spatially sorted, ``ops/block_sparse.kd_block_order``);
-    ``False`` takes the dense (n, M_shard) search for small targets.
-    super_size > 0 adds the two-level cull (supers of ``super_size``
-    blocks, at most ``num_supers`` relevant supers per query block).
-    ``T_gt`` is accepted for the JAX signature and not used."""
-    del T_gt
-    check_precise()
-    if mesh.coords is None:
-        raise ValueError("this rank is not in the mesh")
-    dev = mesh.device
-    source_xyz = torch.as_tensor(source_xyz)
-    dtype = source_xyz.dtype
-    N, M = source_xyz.shape[0], target_xyz.shape[0]
-    n_data, n_map = mesh.shape["data"], mesh.shape["map"]
-    tb = block_size
-    if N % n_data or M % n_map:
-        raise ValueError(f"source rows {N} / target rows {M} must divide "
-                         f"by the mesh's data / map axes ({n_data}, "
-                         f"{n_map}); pad with shard_points")
-    if block_cull and M % (n_map * tb):
-        raise ValueError(
-            f"block_cull needs M divisible by map shards * block_size "
-            f"({n_map} * {tb}); pad with shard_points(..., block={tb})")
-    if source_valid is None:
-        source_valid = torch.ones(N, dtype=torch.bool)
-    if target_valid is None:
-        target_valid = torch.ones(M, dtype=torch.bool)
-    i, j = mesh.coords
-    src = _shard(source_xyz, i, n_data, dev)
-    src_val = _shard(source_valid, i, n_data, dev, torch.bool)
-    tgt = _shard(target_xyz, j, n_map, dev, dtype)
-    tgt_val = _shard(target_valid, j, n_map, dev, torch.bool)
-    cp = params.corr
-    k = cp.k
-    I = params.max_iterations
-    num_source = _all_reduce(mesh, torch.sum(src_val, dtype=torch.int64))
+    name = "sharded_icp_register"
+    capture_error_mode = "thread_local"
 
-    if block_cull:
-        # one-time per-shard block structure (the KD-tree build)
-        nbt_loc = tgt.shape[0] // tb
-        tgt_blocks = tgt.reshape(nbt_loc, tb, 3)
-        tgt_bval = tgt_val.reshape(nbt_loc, tb)
-        blo = torch.amin(torch.where(tgt_bval[..., None], tgt_blocks,
-                                     float("inf")), dim=1)
-        bhi = torch.amax(torch.where(tgt_bval[..., None], tgt_blocks,
-                                     float("-inf")), dim=1)
+    def __init__(self, mesh: Mesh, tgt, n_src: int,
+                 detection: DetectionMethod, handling: HandlingMethod,
+                 params: ICPParams, block_cull: bool, block_size: int,
+                 num_blocks: int, super_size: int, num_supers: int, dtype):
+        self.mesh, self.tgt, self.n_src = mesh, tgt, n_src
+        self.detection, self.handling, self.params = detection, handling, \
+            params
+        self.block_cull, self.tb = block_cull, block_size
+        self.num_blocks, self.super_size, self.num_supers = \
+            num_blocks, super_size, num_supers
+        self.dev, self.dtype = mesh.device, dtype
 
-    def one_iteration(R, t):
+    def key(self) -> tuple:
+        mesh = self.mesh
+        return (self.name, tuple(mesh.ranks.shape), mesh.coords,
+                mesh.data.group_name, mesh.map.group_name, self.n_src,
+                self.detection, self.handling, self.params, self.block_cull,
+                self.tb, self.num_blocks, self.super_size, self.num_supers,
+                str(self.dtype), str(self.dev),
+                graphs.tensor_key(self.tgt))
+
+    def load(self, S, src, src_val, tgt_val, R0, t0) -> None:
+        S.put("src", src)
+        S.put("src_val", src_val)
+        S.put("tgt_val", tgt_val)
+        S.put("R0", R0)
+        S.put("t0", t0)
+
+    def prologue(self, S) -> None:
+        dtype, dev = self.dtype, self.dev
+        I = self.params.max_iterations
+        S.put("num_source", _all_reduce(
+            self.mesh, torch.sum(S.src_val, dtype=torch.int64)))
+        if self.block_cull:
+            # the per-shard block structure (the KD-tree build)
+            nbt_loc = self.tgt.shape[0] // self.tb
+            blocks = self.tgt.reshape(nbt_loc, self.tb, 3)
+            bval = S.tgt_val.reshape(nbt_loc, self.tb)
+            S.put("blo", torch.amin(torch.where(bval[..., None], blocks,
+                                                float("inf")), dim=1))
+            S.put("bhi", torch.amax(torch.where(bval[..., None], blocks,
+                                                float("-inf")), dim=1))
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        nan = torch.full((), float("nan"), dtype=dtype, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        S.put("R", S.R0)
+        S.put("t", S.t0)
+        S.put("dx_h", torch.full((I, 6), float("nan"), dtype=dtype,
+                                 device=dev))
+        S.put("T_h", torch.full((I, 4, 4), float("nan"), dtype=dtype,
+                                device=dev))
+        S.put("conv", false)
+        S.put("abt", false)
+        S.put("done", false)
+        S.put("rmse", nan)
+        S.put("fit", nan)
+        S.put("neff", zero)
+        S.put("ovf", zero)
+        S.put("k", zero)
+
+    def iterate(self, S):
+        """One iteration at the state's pose: (dx, n_valid, rmse, fitness,
+        overflow), the same on every rank."""
+        mesh, params, dtype, dev = self.mesh, self.params, self.dtype, \
+            self.dev
+        cp = params.corr
+        k = cp.k
+        n_map = mesh.shape["map"]
+        src, src_val, R, t = S.src, S.src_val, S.R, S.t
         p_w = src @ R.T + t
-        if block_cull:
+        if self.block_cull:
+            nbt_loc = self.tgt.shape[0] // self.tb
             d_loc, c_loc, b_ovf = _local_topk_culled(
-                p_w, src_val, tgt_blocks, tgt_bval, blo, bhi,
-                cp.search_radius, k, num_blocks, sb=super_size,
-                GS=num_supers)
+                p_w, src_val, self.tgt.reshape(nbt_loc, self.tb, 3),
+                S.tgt_val.reshape(nbt_loc, self.tb), S.blo, S.bhi,
+                cp.search_radius, k, self.num_blocks, sb=self.super_size,
+                GS=self.num_supers)
         else:
-            d_loc, c_loc = _local_topk(p_w, tgt, tgt_val, k)
+            d_loc, c_loc = _local_topk(p_w, self.tgt, S.tgt_val, k)
             b_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         # collective 1: every map shard's candidates (and overflow: at
         # most one per 128-query block, exact in the dtype) ...
@@ -407,40 +440,152 @@ def sharded_icp_register(mesh: Mesh, source_xyz, target_xyz, R0, t0,
         g = tot[36:42].to(dtype)
         sq_sum, obj, n_valid, n_fit, ovf = tot[42:]
         rmse = torch.sqrt(sq_sum / torch.clamp(n_valid, min=1)).to(dtype)
-        fitness = (n_fit / torch.clamp(num_source, min=1)).to(dtype)
-        analysis = analyze(H, detection, params.thresholds)
+        fitness = (n_fit / torch.clamp(S.num_source, min=1)).to(dtype)
+        analysis = analyze(H, self.detection, params.thresholds)
         # telemetry=False: the loop consumes only dx
-        dx, _ = solve(H, g, handling, analysis, params.thresholds,
+        dx, _ = solve(H, g, self.handling, analysis, params.thresholds,
                       telemetry=False)
         return dx, n_valid.long(), rmse, fitness, ovf.long()
 
-    R = torch.as_tensor(R0, dtype=dtype, device=dev)
-    t = torch.as_tensor(t0, dtype=dtype, device=dev)
-    dx_h = torch.full((I, 6), float("nan"), dtype=dtype, device=dev)
-    T_h = torch.full((I, 4, 4), float("nan"), dtype=dtype, device=dev)
-    conv = torch.zeros((), dtype=torch.bool, device=dev)
-    abort = torch.zeros((), dtype=torch.bool, device=dev)
-    rmse = fit = torch.full((), float("nan"), dtype=dtype, device=dev)
-    neff = ovf = torch.zeros((), dtype=torch.int64, device=dev)
-    it = 0
-    while it < I and not bool(conv | abort):          # one host sync
-        dx, n_valid, rmse, fit, b_ovf = one_iteration(R, t)
+    def step(self, S) -> None:
+        params = self.params
+        I = params.max_iterations
+        dx, n_valid, rmse, fit, b_ovf = self.iterate(S)
         abort = (n_valid < params.min_effective_points) | \
             ~torch.all(torch.isfinite(dx))
         dx = torch.where(abort, 0.0, dx)
-        R_new, t_new = se3.boxplus(R, t, dx)
-        R = torch.where(abort, R, R_new)
-        t = torch.where(abort, t, t_new)
+        R_new, t_new = se3.boxplus(S.R, S.t, dx)
+        R = torch.where(abort, S.R, R_new)
+        t = torch.where(abort, S.t, t_new)
         conv = (torch.linalg.norm(dx[:3]) < params.convergence_thresh_rot) \
             & (torch.linalg.norm(dx[3:]) < params.convergence_thresh_trans) \
             & ~abort
-        dx_h[it] = dx
-        T_h[it] = se3.se3_matrix(R, t)
-        neff = n_valid
-        ovf = torch.maximum(ovf, b_ovf)
-        it += 1
-    i32 = lambda x: torch.as_tensor(x, device=dev).to(torch.int32)
-    return ShardedICPResult(R=R, t=t, converged=conv, aborted=abort,
-                            iterations=i32(it), rmse=rmse, fitness=fit,
-                            effective_points=i32(neff), dx_history=dx_h,
-                            transform_history=T_h, block_overflow=i32(ovf))
+        S.put_row("dx_h", S.k, dx, I)
+        S.put_row("T_h", S.k, se3.se3_matrix(R, t), I)
+        S.put("R", R)
+        S.put("t", t)
+        S.put("rmse", rmse)
+        S.put("fit", fit)
+        S.put("neff", n_valid)
+        S.put("ovf", torch.maximum(S.ovf, b_ovf))
+        S.put("conv", conv)
+        S.put("abt", abort)
+        S.put("k", S.k + 1)
+        S.put("done", conv | abort)
+
+    def epilogue(self, S) -> None:
+        S.put("iterations", S.k.to(torch.int32))
+        S.put("neff32", S.neff.to(torch.int32))
+        S.put("ovf32", S.ovf.to(torch.int32))
+
+    def parts(self, S) -> dict:
+        return {"prologue": lambda: self.prologue(S),
+                "step": lambda: self.step(S),
+                "epilogue": lambda: self.epilogue(S)}
+
+    def result(self, S) -> "ShardedICPResult":
+        return ShardedICPResult(
+            R=S.R, t=S.t, converged=S.conv, aborted=S.abt,
+            iterations=S.iterations, rmse=S.rmse, fitness=S.fit,
+            effective_points=S.neff32, dx_history=S.dx_h,
+            transform_history=S.T_h, block_overflow=S.ovf32)
+
+
+def _use_graphs(mesh: Mesh, graph) -> bool:
+    """Whether the sharded loop replays CUDA graphs: by default on an
+    NCCL mesh on the card, eagerly on a gloo mesh (gloo's collectives run
+    on the host and cannot be captured), where ``graph=True`` raises."""
+    backend = dist.get_backend(mesh.data)
+    if graph and backend != "nccl":
+        raise ValueError(f"graph=True needs an NCCL mesh: {backend} "
+                         "collectives cannot be captured in a CUDA graph")
+    if graph is None:
+        return mesh.device.type == "cuda" and backend == "nccl"
+    return graphs.use_graphs(mesh.device, graph)
+
+
+def _agree_on_captures(mesh: Mesh, key) -> None:
+    """Every rank of the mesh replays the same graphs or captures anew:
+    a rank whose cache misses ``key`` while another's holds it would
+    pair its warm-up's collectives with the other's replays; so where
+    any rank misses, every rank drops its entry."""
+    miss = torch.tensor([0 if key in graphs.CACHE else 1], dtype=torch.int32,
+                        device=mesh.device)
+    dist.all_reduce(miss, op=dist.ReduceOp.MAX, group=mesh.data)
+    dist.all_reduce(miss, op=dist.ReduceOp.MAX, group=mesh.map)
+    if int(miss):
+        graphs.CACHE.discard(key)
+
+
+def sharded_icp_register(mesh: Mesh, source_xyz, target_xyz, R0, t0,
+                         detection: DetectionMethod,
+                         handling: HandlingMethod,
+                         params: ICPParams = ICPParams(),
+                         T_gt=None, source_valid=None, target_valid=None,
+                         block_cull: bool = True, block_size: int = 32,
+                         num_blocks: int = 16, super_size: int = 0,
+                         num_supers: int = 8, graph=None) -> ShardedICPResult:
+    """Full degeneracy-aware point-to-plane ICP, sharded over ``mesh``.
+
+    Every rank of the mesh calls it with the same global padded arrays:
+    source_xyz (N, 3) with N divisible by mesh.shape['data'], target_xyz
+    (M, 3) with M divisible by mesh.shape['map'] (and, with
+    ``block_cull``, by map * block_size -- use ``shard_points(...,
+    block=block_size)``); pads are marked by the validity masks.  Each
+    rank takes its own rows to ``mesh.device``; the dtype is the
+    source's.  Returns the same ShardedICPResult on every rank.
+
+    block_cull: search each map shard through ``block_size``-point
+    bounding-box blocks, at most ``num_blocks`` relevant blocks per
+    128-query block (exact within the correspondence radius; the target
+    should be spatially sorted, ``ops/block_sparse.kd_block_order``);
+    ``False`` takes the dense (n, M_shard) search for small targets.
+    super_size > 0 adds the two-level cull (supers of ``super_size``
+    blocks, at most ``num_supers`` relevant supers per query block).
+    ``T_gt`` is accepted for the JAX signature and not used.
+
+    On an NCCL mesh on the card the loop's parts (``ShardedLoop``),
+    collectives included, replay CUDA graphs that every rank captures
+    for itself, with one host read per step; ``graph=False`` runs them
+    eagerly.  A gloo mesh runs them eagerly, and ``graph=True`` raises
+    there and on the CPU."""
+    del T_gt
+    check_precise()
+    if mesh.coords is None:
+        raise ValueError("this rank is not in the mesh")
+    dev = mesh.device
+    source_xyz = torch.as_tensor(source_xyz)
+    dtype = source_xyz.dtype
+    N, M = source_xyz.shape[0], target_xyz.shape[0]
+    n_data, n_map = mesh.shape["data"], mesh.shape["map"]
+    tb = block_size
+    if N % n_data or M % n_map:
+        raise ValueError(f"source rows {N} / target rows {M} must divide "
+                         f"by the mesh's data / map axes ({n_data}, "
+                         f"{n_map}); pad with shard_points")
+    if block_cull and M % (n_map * tb):
+        raise ValueError(
+            f"block_cull needs M divisible by map shards * block_size "
+            f"({n_map} * {tb}); pad with shard_points(..., block={tb})")
+    if source_valid is None:
+        source_valid = torch.ones(N, dtype=torch.bool)
+    if target_valid is None:
+        target_valid = torch.ones(M, dtype=torch.bool)
+    i, j = mesh.coords
+    src = _shard(source_xyz, i, n_data, dev)
+    src_val = _shard(source_valid, i, n_data, dev, torch.bool)
+    tgt = _shard(target_xyz, j, n_map, dev, dtype)
+    tgt_val = _shard(target_valid, j, n_map, dev, torch.bool)
+    graphed = _use_graphs(mesh, graph)
+    loop = ShardedLoop(mesh, tgt, src.shape[0], detection, handling, params,
+                       block_cull, block_size, num_blocks, super_size,
+                       num_supers, dtype)
+    if graphed and mesh.ranks.size > 1:
+        _agree_on_captures(mesh, loop.key())
+    R0 = torch.as_tensor(R0, dtype=dtype, device=dev)
+    t0 = torch.as_tensor(t0, dtype=dtype, device=dev)
+    run, S = graphs.bind(
+        loop, lambda S: loop.load(S, src, src_val, tgt_val, R0, t0), graphed,
+        loop.name, dev)
+    graphs.drive(run, S, params.max_iterations)
+    return graphs.detached(loop.result(S)) if graphed else loop.result(S)

@@ -11,6 +11,7 @@ test asserts; distances agree within the same bound everywhere.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.ops import block_sparse as jbs

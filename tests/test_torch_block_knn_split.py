@@ -10,6 +10,7 @@ import functools
 
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu_torch.ops import block_knn as tk

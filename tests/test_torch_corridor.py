@@ -43,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 from dcreg_tpu.models.icp import ICPParams
 from dcreg_tpu.models.odometry import (estimate_odometry_capacities,

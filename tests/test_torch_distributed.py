@@ -57,6 +57,7 @@ if __name__ == "__main__":
 
 import jax.numpy as jnp  # noqa: E402
 import pytest  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from dcreg_tpu.models.icp import (  # noqa: E402
     ICPParams as JICPParams, icp_point_to_plane_so3)

@@ -24,6 +24,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 from dcreg_tpu_torch.io.e57 import write_e57
 from dcreg_tpu_torch.io.tum import save_tum

@@ -22,6 +22,7 @@ import collections
 
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 

@@ -25,6 +25,7 @@ float32 as on the card), no JAX: about 30 s on one worker.
 """
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from chip_smoke import synthetic_cylinder

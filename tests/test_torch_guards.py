@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu_torch.models import icp_batch as tib

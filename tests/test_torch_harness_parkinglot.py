@@ -11,6 +11,7 @@ functions these tests call.
 """
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 from chip_smoke import PARKING_ROWS, pair_scenarios, synthetic_cylinder
 from dcreg_tpu.config import load_config as j_load_config

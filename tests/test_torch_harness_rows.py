@@ -5,6 +5,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 from chip_smoke import (CONFIGS, CYLINDER_YAML, pair_scenarios,
                         synthetic_cylinder)

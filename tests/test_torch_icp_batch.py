@@ -13,6 +13,7 @@ num_valid identical, rmse and fitness within rtol 1e-5.
 import numpy as np
 import jax.numpy as jnp
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 from dcreg_tpu.models.icp import ICPParams, covariance_from_H
 from dcreg_tpu.models.icp_batch import estimate_num_pairs, icp_batch_so3

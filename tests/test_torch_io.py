@@ -8,6 +8,7 @@ the other's file exactly, ``crc32c`` on the RFC 3720 vectors.
 """
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.io import e57 as je57

@@ -22,6 +22,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.ops import pallas_knn

@@ -13,6 +13,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.ops import degeneracy as jdeg

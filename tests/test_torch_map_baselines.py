@@ -21,6 +21,7 @@ Found: 1.0e-4 m at most.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 import chip_smoke as cs

@@ -7,6 +7,7 @@ import pathlib
 
 import numpy as np
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.io import native as jnative

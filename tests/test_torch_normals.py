@@ -16,6 +16,7 @@ Stated tolerances:
 import numpy as np
 import jax.numpy as jnp
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from chip_smoke import synthetic_cylinder

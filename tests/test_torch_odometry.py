@@ -8,6 +8,7 @@ the capacity estimates identical.
 """
 import numpy as np
 import jax.numpy as jnp
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 from dcreg_tpu.models.icp import ICPParams
 from dcreg_tpu.models.odometry import (estimate_odometry_capacities,

@@ -154,6 +154,7 @@ if __name__ == "__main__":
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import pytest  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from dcreg_tpu.models.icp import ICPParams as JICPParams  # noqa: E402
 from dcreg_tpu.ops.degeneracy import (  # noqa: E402

@@ -12,6 +12,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.models import pose_graph as jpg

@@ -47,6 +47,7 @@ if __name__ == "__main__":
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import pytest  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from dcreg_tpu.models import pose_graph as jpg  # noqa: E402
 from dcreg_tpu.parallel import make_mesh as jax_make_mesh  # noqa: E402

@@ -14,6 +14,7 @@ fitness and the condition numbers within 1e-8 relative.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
 from dcreg_tpu.models import odometry as jodo
