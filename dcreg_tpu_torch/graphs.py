@@ -24,6 +24,18 @@ each replay adds the tally to the wrappers' counters, so ``launches``
 counts what the card ran (and ``launches_replayed`` the part of it that
 came from replays).
 
+Likewise a profiler range inside a part would run once, at capture, and
+never at a replay.  So a part names its modules with ``mark``: at every
+capture, traced or not, each mark records the range of the part's device
+operations (kernel, copy and set nodes, in capture order) that its block
+created, in ``Graphs.modules[part]`` beside ``Graphs.nodes[part]``; a
+single-stream capture replays its nodes in that order, so
+``tracing.module_times`` can split a profiled replay by the table.  A mark
+adds no node and reads nothing from the device.  Outside a capture it is
+a ``tracing.span``.  ``bind``, each replay and each read of the done flag
+in ``drive`` are spans too (``graphs.bind``, ``graphs.replay``,
+``graphs.done_read``), and ``STATS.host_reads`` counts the reads.
+
 Every loop class (``BatchLoop``, ``MapLoop``, ``PairLoop``,
 ``EulerLoop``, ``VoxelLoop``, ``XICPLoop``, ``O3DLoop``,
 ``SuperLocLoop``, ``PoseGraphLoop``, ``ShardedLoop``) has ``key()`` and
@@ -36,13 +48,28 @@ whose parts hold collectives captures in ``capture_error_mode``
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
 import dataclasses
+import functools
+import itertools
 import time
 
 import torch
 
-# tallies of the captures in progress (innermost last)
+from . import tracing
+
+# the captures in progress (``Capture``, innermost last)
 _RECORDING: list = []
+_SERIALS = itertools.count()
+
+
+@dataclasses.dataclass
+class Stats:
+    host_reads: int = 0          # reads of the done flag in ``drive``
+
+
+STATS = Stats()
 
 
 def _bump(wrapper, kk, n: int, replayed: bool = False) -> None:
@@ -63,6 +90,102 @@ def note_launch(wrapper, kk=None) -> None:
         _RECORDING[-1][(wrapper, kk)] += 1
     else:
         _bump(wrapper, kk, 1)
+
+
+class _Driver:
+    """The CUDA driver's capture queries, through ctypes."""
+
+    OPS = (0, 1, 2)            # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+    ACTIVE = 1                 # CU_STREAM_CAPTURE_STATUS_ACTIVE
+
+    def __init__(self):
+        lib = ctypes.CDLL("libcuda.so.1")
+        p = ctypes.POINTER
+        self.info = lib.cuStreamGetCaptureInfo_v2
+        self.info.argtypes = [ctypes.c_void_p, p(ctypes.c_int),
+                              p(ctypes.c_uint64), p(ctypes.c_void_p),
+                              p(ctypes.c_void_p), p(ctypes.c_size_t)]
+        self.nodes = lib.cuGraphGetNodes
+        self.nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               p(ctypes.c_size_t)]
+        self.kind = lib.cuGraphNodeGetType
+        self.kind.argtypes = [ctypes.c_void_p, p(ctypes.c_int)]
+        for fn in (self.info, self.nodes, self.kind):
+            fn.restype = ctypes.c_int                     # CUresult
+
+    @staticmethod
+    def check(err, what) -> None:
+        if err:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    def capture_nodes(self) -> list:
+        """The nodes of the graph the current stream is capturing."""
+        status, graph = ctypes.c_int(), ctypes.c_void_p()
+        self.check(self.info(torch.cuda.current_stream().cuda_stream,
+                             ctypes.byref(status), None,
+                             ctypes.byref(graph), None, None),
+                   "cuStreamGetCaptureInfo_v2")
+        if status.value != self.ACTIVE:
+            raise RuntimeError("graphs.mark: the current stream is not "
+                               "capturing")
+        n = ctypes.c_size_t()
+        self.check(self.nodes(graph, None, ctypes.byref(n)),
+                   "cuGraphGetNodes")
+        if not n.value:
+            return []
+        out = (ctypes.c_void_p * n.value)()
+        self.check(self.nodes(graph, out, ctypes.byref(n)),
+                   "cuGraphGetNodes")
+        return list(out[:n.value])
+
+    def is_op(self, node) -> bool:
+        kind = ctypes.c_int()
+        self.check(self.kind(ctypes.c_void_p(node), ctypes.byref(kind)),
+                   "cuGraphNodeGetType")
+        return kind.value in self.OPS
+
+
+@functools.cache
+def _driver() -> _Driver:
+    return _Driver()
+
+
+class Capture(collections.Counter):
+    """One part's capture in progress: the kernel launches its wrappers
+    made, by (wrapper, kk) (``note_launch``), and its marks, ``modules``
+    [(name, first, end)] over the part's device operations in capture
+    order, in the order the marks opened."""
+
+    def __init__(self):
+        super().__init__()
+        self.modules, self._seen, self._ops = [], set(), 0
+
+    def ops(self) -> int:
+        """Device operations (kernel, copy and set nodes) captured so
+        far; nodes are only ever added to a graph under capture."""
+        for node in set(_driver().capture_nodes()) - self._seen:
+            self._seen.add(node)
+            self._ops += _driver().is_op(node)
+        return self._ops
+
+
+@contextlib.contextmanager
+def _marked(cap: Capture, name: str):
+    # no ``finally``: a capture that fails inside the block is over, and
+    # its error is the one to raise
+    entry = [name, cap.ops(), 0]
+    cap.modules.append(entry)
+    yield
+    entry[2] = cap.ops()
+
+
+def mark(name: str):
+    """A module of a compiled part over a block: under a ``Graphs``
+    capture, the range of device operations its block captured goes into
+    the part's module table; elsewhere a ``tracing.span``."""
+    if not _RECORDING:
+        return tracing.span(name)
+    return _marked(_RECORDING[-1], name)
 
 
 class State:
@@ -150,15 +273,21 @@ class Graphs:
     """The captured parts of one static configuration, sharing one memory
     pool and replayed in the order they were captured; ``state`` holds
     the tensors they read and write.  ``launches[name]`` is the kernel
-    launches each replay of that part counts, ``seconds`` the warm-up
-    and capture time; ``capture_error_mode`` goes to
-    ``torch.cuda.graph``."""
+    launches each replay of that part counts, ``nodes[name]`` its device
+    operations and ``modules[name]`` its marks' ranges over them, which
+    ``tracing.module_times`` reads through ``tracing.GRAPHS`` under
+    ``serial``; ``seconds`` the warm-up and capture time;
+    ``capture_error_mode`` goes to ``torch.cuda.graph``."""
+
+    serial = None          # of an instance built without ``__init__``
 
     def __init__(self, label: str, state: State, parts: dict, device,
                  capture_error_mode: str = "global"):
-        self.state = state
+        self.label, self.state = label, state
         self.graphs = {}
         self.launches = {}
+        self.nodes, self.modules = {}, {}
+        self.serial = next(_SERIALS)
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -170,24 +299,27 @@ class Graphs:
         pool = torch.cuda.graph_pool_handle()
         for name, fn in parts.items():
             g = torch.cuda.CUDAGraph()
-            tally = collections.Counter()
-            _RECORDING.append(tally)
+            cap = Capture()
+            _RECORDING.append(cap)
             try:
                 with torch.cuda.graph(g, pool=pool,
                                       capture_error_mode=capture_error_mode):
                     fn()
+                    self.nodes[name] = cap.ops()
             except Exception as exc:
                 raise RuntimeError(f"CUDA graph capture of {label}, part "
                                    f"{name!r}, failed: {exc}") from exc
             finally:
                 _RECORDING.pop()
             self.graphs[name] = g
-            self.launches[name] = tally
+            self.launches[name] = cap
+            self.modules[name] = [tuple(m) for m in cap.modules]
+        tracing.GRAPHS[self.serial] = self
         torch.cuda.synchronize(device)
         self.seconds = time.perf_counter() - t0
 
     def __call__(self, name: str) -> None:
-        self.graphs[name].replay()
+        tracing.replay(self.graphs[name], part=name, graphs=self.serial)
         for (wrapper, kk), n in self.launches[name].items():
             _bump(wrapper, kk, n, replayed=True)
 
@@ -246,15 +378,16 @@ def bind(loop, load, graphed: bool, label: str, device):
     cached graphs of ``loop.key()`` (captured on a miss, named ``label``
     in a capture error, in the loop's ``capture_error_mode`` if it has
     one) over their state, refilled by ``load``."""
-    if not graphed:
-        state = State()
-        load(state)
-        return run_eager(loop.parts(state)), state
-    mode = getattr(loop, "capture_error_mode", "global")
-    entry = CACHE.lookup(loop.key(), load,
-                         lambda s: Graphs(label, s, loop.parts(s), device,
-                                          mode))
-    return entry, entry.state
+    with tracing.span("graphs.bind"):
+        if not graphed:
+            state = State()
+            load(state)
+            return run_eager(loop.parts(state)), state
+        mode = getattr(loop, "capture_error_mode", "global")
+        entry = CACHE.lookup(loop.key(), load,
+                             lambda s: Graphs(label, s, loop.parts(s),
+                                              device, mode))
+        return entry, entry.state
 
 
 def drive(run, S, max_iterations: int) -> None:
@@ -264,8 +397,12 @@ def drive(run, S, max_iterations: int) -> None:
     epilogue.  ``run(name)`` runs or replays a part."""
     run("prologue")
     for it in range(max_iterations):
-        if it and bool(S.done):                   # one host sync per trip
-            break
+        if it:
+            STATS.host_reads += 1
+            with tracing.span("graphs.done_read"):
+                done = bool(S.done)               # one host sync per trip
+            if done:
+                break
         run("step")
     run("epilogue")
 

@@ -31,7 +31,6 @@ from ..ops.block_sparse import BlockIndex, MapIndex
 from ..ops.degeneracy import DetectionMethod, HandlingMethod, analyze
 from ..ops.soa_tail import batched_tail_system
 from ..ops.solvers import solve
-from ..graphs import drive  # noqa: F401  (re-exported)
 from ..utils import check_precise, resolve_device
 from .icp import (Hist, ICPParams, IterationLog, _empty_log,
                   covariance_from_H, empty_hist, telemetry_row)
@@ -180,9 +179,40 @@ class BatchLoop:
 
     def iterate(self, S, Rs, ts, r_cull, active):
         """One ICP iteration of every lane at (Rs, ts): (system, dx,
-        abort_now, overflow, d5bm)."""
-        B, nq, N, bi = self.B, self.nq, self.N, self.bi
-        params, radius = self.params, self.radius
+        abort_now, overflow, d5bm).  Its modules are marked (``search``,
+        ``tail.planes``, ``tail.system``, ``degeneracy``, ``solve``)."""
+        B, nq, N = self.B, self.nq, self.N
+        params = self.params
+        with graphs.mark("search"):
+            vals, idx, overflow = self.search(S, Rs, ts, r_cull, active)
+            # exact 5th-NN distance per (lane, query block); BIG where a
+            # block was uncovered -> the next radius falls back to the
+            # full one
+            k = params.corr.k
+            d5row = vals[:, k - 1, :]
+            d5bm = torch.sqrt(torch.amax(d5row.reshape(B, nq, QB), dim=2))
+        sysm = batched_tail_system(
+            S.src, self.target, Rs, ts, sq_d5=d5row[:, :N],
+            idx_kn=idx[:, :k, :N], params=params.corr,
+            use_weight_derivative=params.use_weight_derivative,
+            weight_slope=params.corr.weight_slope)
+        with graphs.mark("degeneracy"):
+            analysis = analyze(sysm.H, self.detection, params.thresholds,
+                               fast=self.fast)
+        with graphs.mark("solve"):
+            dx, _ = solve(sysm.H, sysm.g, self.handling, analysis,
+                          params.thresholds, telemetry=False,
+                          fast=self.fast)
+            too_few = sysm.num_valid < params.min_effective_points
+            bad_dx = ~torch.all(torch.isfinite(dx), dim=-1)
+            abort_now = too_few | bad_dx
+            dx = torch.where(abort_now[:, None], 0.0, dx)
+        return sysm, dx, abort_now, overflow, d5bm
+
+    def search(self, S, Rs, ts, r_cull, active):
+        """The pair list (reused, or culled at (Rs, ts)) and K1's 5-NN
+        answer over it: (vals, idx, overflow)."""
+        B, bi = self.B, self.bi
         knn_kwargs = {}
         if self.reuse:
             qid, tid = S.qid0, S.tid0
@@ -232,36 +262,25 @@ class BatchLoop:
             covered = torch.any(rel, dim=1)
         poses12 = torch.cat([Rs.reshape(B, 9), ts], dim=1)
         vals, idx = batched_block_knn(bi, S.src_blocks, poses12, qid, tid,
-                                      radius=radius, covered=covered,
+                                      radius=self.radius, covered=covered,
                                       lane_mask=lmask, layout="kn",
                                       plain=self.plain_knn, **knn_kwargs)
-        # exact 5th-NN distance per (lane, query block); BIG where a
-        # block was uncovered -> the next radius falls back to the full one
-        k = params.corr.k
-        d5row = vals[:, k - 1, :]
-        d5bm = torch.sqrt(torch.amax(d5row.reshape(B, nq, QB), dim=2))
-        sysm = batched_tail_system(
-            S.src, self.target, Rs, ts, sq_d5=d5row[:, :N],
-            idx_kn=idx[:, :k, :N], params=params.corr,
-            use_weight_derivative=params.use_weight_derivative,
-            weight_slope=params.corr.weight_slope)
-        analysis = analyze(sysm.H, self.detection, params.thresholds,
-                           fast=self.fast)
-        dx, _ = solve(sysm.H, sysm.g, self.handling, analysis,
-                      params.thresholds, telemetry=False, fast=self.fast)
-        too_few = sysm.num_valid < params.min_effective_points
-        bad_dx = ~torch.all(torch.isfinite(dx), dim=-1)
-        abort_now = too_few | bad_dx
-        dx = torch.where(abort_now[:, None], 0.0, dx)
-        return sysm, dx, abort_now, overflow, d5bm
+        return vals, idx, overflow
 
     def step(self, S) -> None:
+        with graphs.mark("update"):
+            active = ~(S.conv | S.abt)
+        result = self.iterate(S, S.Rs, S.ts, S.r_cull, active)
+        with graphs.mark("update"):
+            self.update(S, active, *result)
+
+    def update(self, S, active, sysm, dx, abort_now, overflow,
+               d5bm) -> None:
+        """The step's bookkeeping after ``iterate``: the history, the
+        pose update, the convergence test and the state."""
         B, params = self.B, self.params
         I = params.max_iterations
         Rs, ts, conv, abt = S.Rs, S.ts, S.conv, S.abt
-        active = ~(conv | abt)
-        sysm, dx, abort_now, overflow, d5bm = self.iterate(
-            S, Rs, ts, S.r_cull, active)
         abort_now = abort_now & active
         # history column ``it`` of each active lane
         col = (torch.arange(I, device=self.dev) == S.it)[None, :] \

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, tracing
 from ..ops import se3
 from ..ops.block_sparse import kd_block_order
 from ..ops.correspondence import CorrespondenceParams, fit_planes
@@ -390,8 +390,9 @@ def _odometry_map_impl(frames, map_xyz, mindex, T0, T_prev, detection,
         if f:
             S.put("src", frames[f])
         graphs.drive(run, S, params.max_iterations)
-    return MapOdometryResult(*(getattr(S, f"out.{name}")[:F].clone()
-                               for name in MapOdometryResult._fields))
+    with tracing.span("odometry.results"):
+        return MapOdometryResult(*(getattr(S, f"out.{name}")[:F].clone()
+                                   for name in MapOdometryResult._fields))
 
 
 def estimate_odometry_capacities(mindex, frames, traj_hint, radius,
@@ -416,6 +417,7 @@ def estimate_odometry_capacities(mindex, frames, traj_hint, radius,
     return S, G, P
 
 
+@tracing.calls("odometry.call")
 def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
                      handling=None, icp_params=None, num_supers: int = 0,
                      max_per_query: int = 0, num_pairs: int = 0,
@@ -437,7 +439,8 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
     unless told otherwise): on the card each frame replays the CUDA
     graphs of its parts (``MapLoop``), captured at the first call of
     their statics; ``graph=False`` runs them eagerly, for checking only;
-    on the CPU they run eagerly and ``graph=True`` raises."""
+    on the CPU they run eagerly and ``graph=True`` raises.  Each call is
+    an ``odometry.call`` span (``tracing.calls``)."""
     check_precise()
     dev = resolve_device(device)
     graphed = graphs.use_graphs(dev, graph)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import graphs
 from .correspondence import CorrespondenceParams
 from .gauss_newton import GNSystem
 
@@ -113,10 +114,21 @@ def batched_tail_system(source_xyz, target_xyz, Rs, ts, sq_d5, idx_kn,
     source_xyz (N, 3); target_xyz (M, 3); Rs (B, 3, 3); ts (B, 3);
     sq_d5 (B, N) squared k-th neighbour distance (the radius gate);
     idx_kn (B, k, N) neighbour indices, -1 where missing.  Returns a
-    GNSystem with leading (B,) dims."""
-    dt, dev = source_xyz.dtype, source_xyz.device
+    GNSystem with leading (B,) dims.  Its two modules are marked
+    (``graphs.mark``): ``tail.planes`` and ``tail.system``."""
+    with graphs.mark("tail.planes"):
+        plane = _plane_fit(target_xyz, idx_kn, params)
+    with graphs.mark("tail.system"):
+        return _gn_system(source_xyz, Rs, ts, sq_d5, *plane, params,
+                          use_weight_derivative, weight_slope)
+
+
+def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
+    """The neighbours' plane fit: (unit normal components nox, noy, noz,
+    offset d_off, fit_ok, plane_ok), each (B, N)."""
+    dt, dev = target_xyz.dtype, target_xyz.device
     one = torch.ones((), dtype=dt, device=dev)
-    B, k, N = idx_kn.shape
+    k = idx_kn.shape[1]
     fk = float(k)
 
     neigh = target_xyz[torch.clamp(idx_kn, min=0)]        # (B, k, N, 3)
@@ -178,7 +190,16 @@ def batched_tail_system(source_xyz, target_xyz, Rs, ts, sq_d5, idx_kn,
     pd = (nx_ * nox[:, None] + ny_ * noy[:, None] + nz_ * noz[:, None]
           + d_off[:, None])
     plane_ok = torch.amax(pd * pd, dim=1) < params.max_plane_thickness ** 2
+    return nox, noy, noz, d_off, fit_ok, plane_ok
 
+
+def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,
+               plane_ok, params: CorrespondenceParams,
+               use_weight_derivative: bool, weight_slope: float) -> GNSystem:
+    """Residuals, robust weights and the GN rows at (Rs, ts) against the
+    fitted planes, reduced to H and g."""
+    dt = source_xyz.dtype
+    N = source_xyz.shape[0]
     p_w = torch.einsum('nj,bij->bni', source_xyz, Rs) + ts[:, None, :]
     pwx, pwy, pwz = p_w[..., 0], p_w[..., 1], p_w[..., 2]
 
