@@ -25,12 +25,19 @@ sm_90a), then runs on the card:
      a stale-cache check (a second map index over the map shifted by
      +1 m in x, the same shapes: frame 0 must come out shifted by 1 m,
      and the first index must replay its own graphs bit for bit); the
+     kernel pcg6 (``solve_pcg_fast``) against its plain twin on the
+     systems of the first eager 16-frame pass, each as launched
+     (``pcg6_check`` B1_map_pass: the same branch per system, x
+     bit-equal where Cholesky answers, the gates of ``pcg6_gates`` where
+     PCG does, times and bound, and the share of systems that took
+     PCG); the
      8-frame profile window graphed (under 50 kernel-launch calls per
      ICP iteration, the rest by ``cudaGraphLaunch``) and eager;
   3. a B=128 Monte-Carlo batch in MapIndex mode with full telemetry,
      graphed, gated on convergence, zero overflow, mean errors < 5 cm /
      0.5 deg, and rerun eagerly (per-lane iterations equal, poses within
-     1e-5);
+     1e-5), pcg6 against its plain twin on that rerun's systems as
+     launched (``pcg6_check`` B128_mc_map);
   4. a B=128 BlockIndex-mode batch on a 16,384-point neighbourhood of
      frame 0, graphed, gated on convergence and zero overflow, rerun
      eagerly and with the plain K1 forced (each: per-lane iterations
@@ -68,7 +75,7 @@ sm_90a), then runs on the card:
      bit-equality reported); one Ours, XICP, XICP-EQ and O3D run each
      under the profiler (the host's launch calls per ICP iteration
      printed; under one for XICP-EQ and O3D);
-  7. the ``kernels`` line: K1, K2 and K3 with their launches on each
+  7. the ``kernels`` line: K1, K2, K3 and pcg6 with their launches on each
      path (K2's including (8b) and (9c), and those of them from graph
      replays; K1's (10a) and (10b)), times, bounds and library times;
      printed after phase 10;
@@ -133,7 +140,11 @@ sm_90a), then runs on the card:
      plain twin at the corridor loop's own call (frame 0's reused pair
      list and live mask, the corridor's capacities and radii); K1's
      launches per method, and two DCReg and two ME-TSVD frames under
-     the profiler; (10b) bench.py's
+     the profiler; pcg6 against its plain twin on DCReg's systems,
+     recorded from an eager pass (``pcg6_check``: each as launched, B = 1,
+     and the first 128 stacked; all degenerate, so they take PCG: every
+     stop legitimate, converged answers within float32 rounding, the
+     residuals those of the answers, P to 1e-6); (10b) bench.py's
      map-scale baseline rows ME-TSVD, ME-TReg and FCN-SR through
      ``run_odometry_map`` on phase 2's map, capacities and first 16
      frames: finite poses for all three; for ME-TSVD and ME-TReg zero
@@ -217,7 +228,7 @@ def wall(fn):
 
 # names of the port's hand-written CUDA kernels (csrc/)
 PORT_KERNELS = ("block_knn_keys_kernel", "block_knn_merge_kernel",
-                "knn_candidates_kernel", "group_min_kernel")
+                "knn_candidates_kernel", "group_min_kernel", "pcg6_kernel")
 
 
 # host calls of the CUDA runtime that launch work: kernels one by one, or
@@ -530,6 +541,213 @@ def check_k1_graph(name, a):
     emit(row)
     if row["mismatches"] or counted != 1:
         raise RuntimeError(f"K1 in a CUDA graph failed: {row}")
+
+
+# bytes one system moves through pcg6 in float32, and its float operations
+# (dcreg_tpu_torch/csrc/pcg6.cu's note): the preconditioner 122, the
+# Cholesky solve 169, and where PCG runs 91 to start and 204 per trip
+PCG6_BYTES = 590
+PCG6_OPS = (122 + 169, 91, 204)
+EPS32 = float(torch.finfo(torch.float32).eps)
+# where the twin converged, the relative distance of pcg6's PCG answer
+# from the twin's stays under 16 eps kappa(H) (256 eps kappa where H is
+# indefinite), within these ends; the worst seen between the two, on
+# map-like ground-only systems (kappa about 3e4), is 4.5e-4
+PCG6_X_TOL = (1e-5, 1e-3)
+# a PCG answer's residual |g - H x| and the residual its recursion
+# reports part by float32 rounding, within this many eps of
+# |g| + |H| |x| (the twin's own worst, on indefinite systems: 710)
+PCG6_RESIDUAL_DRIFT = 1024
+# float32 rounding moves the stop of some PCG systems by a trip or a few
+# (about 6% of the battery's, 16% of the corridor's), a wrong count that
+# of every one: at most this share of a row's PCG systems may differ
+PCG6_ITERATIONS_DIFFER_SHARE = 0.5
+
+
+def pcg6_bound(iterations):
+    """Least time for pcg6's work on these systems: the larger of their
+    bytes over the memory rate and their operations (the trips each
+    system ran) over the f32 rate."""
+    it = iterations.reshape(-1).long()
+    ops = int((PCG6_OPS[0] + torch.where(
+        it >= 0, PCG6_OPS[1] + PCG6_OPS[2] * it, 0)).sum())
+    nbytes = PCG6_BYTES * it.numel()
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops}
+
+
+def pcg6_x_tolerance(H):
+    """Per system, the relative distance two float32 PCG solves of H that
+    sum in different orders may keep: a float32 solve's forward error
+    grows with the condition number, 16 eps kappa(H) (kappa over the
+    eigenvalues' magnitudes above 1e-6 of the largest, in float64); 256
+    eps kappa where H is indefinite, since CG's steps then divide by
+    curvatures p.Hp that can pass near zero; within PCG6_X_TOL."""
+    w = torch.linalg.eigvalsh(torch.nan_to_num(H.double()))
+    indefinite = (w < 0).any(-1)
+    w = w.abs()
+    top = w.amax(-1, keepdim=True)
+    low = torch.where(w > 1e-6 * top, w, top).amin(-1)
+    factor = torch.where(indefinite, 256.0, 16.0)
+    return torch.clamp(factor * EPS32 * top[..., 0] / low, *PCG6_X_TOL)
+
+
+def pcg6_gates(H, g, out, twin, thresholds):
+    """pcg6's answer ``out`` = (x, SolveInfo) against its plain twin's
+    ``twin`` on the same systems: a row of measures, with ``failed``, the
+    gates that do not hold.  Gates: the same branch per system; x
+    bit-equal where Cholesky answers; x's and the residual's NaN where the
+    twin's are; every PCG stop legitimate (1 to the cap's trips, ending
+    under the threshold, at the cap or at the twin's count); x of every
+    system the twin converged within ``pcg6_x_tolerance`` of the twin's;
+    the residual every PCG system reports, the cap's included, that of
+    its answer (PCG6_RESIDUAL_DRIFT); P within 1e-6 of its largest entry;
+    W and cond as the twin's."""
+    (x, info), (x_t, info_t) = out, twin
+    H, g = H.reshape(-1, 6, 6), g.reshape(-1, 6)
+    x, x_t = x.reshape(-1, 6), x_t.reshape(-1, 6)
+    it = info.pcg_iterations.reshape(-1)
+    it_t = info_t.pcg_iterations.reshape(-1)
+    res = info.pcg_residual.reshape(-1)
+    res_t = info_t.pcg_residual.reshape(-1)
+    use, cap = it_t >= 0, thresholds.pcg_max_iter
+    thresh = thresholds.pcg_tolerance * torch.linalg.norm(
+        g, dim=-1).clamp(min=1e-30) * (1.0 + 1e-5)
+    stop_ok = (it >= 1) & (it <= cap) & (
+        (res <= thresh) | (it == cap) | (it == it_t))
+    fin = use & torch.isfinite(x_t).all(-1) & torch.isfinite(res_t)
+    conv = fin & (res_t <= thresh)
+    dist = ((x - x_t).abs().amax(-1)
+            / x_t.abs().amax(-1).clamp(min=1e-30)).double()
+    x_over = (dist[conv] / pcg6_x_tolerance(H[conv]) if conv.any()
+              else dist[:0])
+    r_over = dist[:0]
+    if fin.any():
+        Hd, xd, gd = H[fin].double(), x[fin].double(), g[fin].double()
+        true = torch.linalg.norm(gd - (Hd @ xd[..., None])[..., 0], dim=-1)
+        drift = PCG6_RESIDUAL_DRIFT * EPS32 * (
+            torch.linalg.norm(gd, dim=-1) + torch.linalg.matrix_norm(
+                Hd, ord=2) * torch.linalg.norm(xd, dim=-1))
+        r_over = (true - res[fin].double()).abs() / drift
+    P = info.P_preconditioner.reshape(-1, 36)
+    P_t = info_t.P_preconditioner.reshape(-1, 36)
+    p_rel = ((P - P_t).abs().amax(-1)
+             / P_t.abs().amax(-1).clamp(min=1e-30))
+    worst = lambda t: float(t.max()) if t.numel() else 0.0
+    row = {"systems": int(x.shape[0]), "pcg_systems": int(use.sum()),
+           "pcg_converged": int(conv.sum()),
+           "pcg_at_cap": int((use & (it == cap)).sum()),
+           "pcg_iterations_differ": int((it != it_t)[use].sum()),
+           "pcg_max_rel": worst(dist[conv]),
+           "x_over_tolerance": worst(x_over),
+           "residual_over_drift": worst(r_over),
+           "P_max_rel": worst(p_rel)}
+    gates = {
+        "branch": torch.equal(it >= 0, use),
+        "cholesky_x": bit_equal([x[~use]], [x_t[~use]]),
+        "nan": (torch.equal(x.isnan(), x_t.isnan())
+                      and torch.equal(res.isnan(), res_t.isnan())),
+        "stops": bool(stop_ok[use].all()),
+        "pcg_x": row["x_over_tolerance"] <= 1.0,
+        "residual": row["residual_over_drift"] <= 1.0,
+        "P": bool((p_rel <= 1e-6).all()),
+        "W_cond": bit_equal([info.W_adaptive, info.cond_PH],
+                            [info_t.W_adaptive, info_t.cond_PH])}
+    row["failed"] = [k for k, ok in gates.items() if not ok]
+    return row
+
+
+def check_pcg6(name, calls, timed=0):
+    """pcg6 against its plain twin on the card on each of ``calls``
+    ((H, g, analysis) as launched): ``pcg6_gates`` over all of them, at
+    most PCG6_ITERATIONS_DIFFER_SHARE of their PCG systems stopping on
+    another trip than the twin's, and the times and bound of call
+    ``timed``."""
+    from dcreg_tpu_torch.ops import solvers
+    from dcreg_tpu_torch.ops.degeneracy import DegeneracyThresholds
+    th = DegeneracyThresholds()
+    row = {"phase": "pcg6_check", "shape": name, "calls": len(calls),
+           "batch": list(calls[timed][0].shape[:-2])}
+    rows = [pcg6_gates(H, g, solvers.solve_pcg_fast(H, g, a, th),
+                       solvers.solve_pcg_fast_plain(H, g, a, th), th)
+            for H, g, a in calls]
+    for k in ("systems", "pcg_systems", "pcg_converged", "pcg_at_cap",
+              "pcg_iterations_differ"):
+        row[k] = sum(r[k] for r in rows)
+    for k in ("pcg_max_rel", "x_over_tolerance", "residual_over_drift",
+              "P_max_rel"):
+        row[k] = max(r[k] for r in rows)
+    row["failed"] = sorted({f for r in rows for f in r["failed"]})
+    if row["pcg_iterations_differ"] > \
+            PCG6_ITERATIONS_DIFFER_SHARE * row["pcg_systems"]:
+        row["failed"].append("iterations_differ")
+    row["pcg_share"] = row["pcg_systems"] / row["systems"]
+    H, g, a = calls[timed]
+    out = solvers.solve_pcg_fast(H, g, a, th)
+    row["timed_pcg_trips"] = out[1].pcg_iterations.reshape(-1).tolist()[:8]
+    row["ms"] = time_ms(lambda: solvers.solve_pcg_fast(H, g, a, th), 200)
+    row["plain_ms"] = time_ms(
+        lambda: solvers.solve_pcg_fast_plain(H, g, a, th), 20)
+    row.update(pcg6_bound(out[1].pcg_iterations))
+    emit(row)
+    if row["failed"]:
+        raise RuntimeError(f"pcg6 {name} differs from the plain twin: "
+                           f"{row}")
+    return row
+
+
+def recording_solves(run, calls):
+    """``run(graph)`` whose first eager call (graph=False) appends the
+    operands of every pcg6 launch, (H, g, analysis) copied, to
+    ``calls``."""
+    from dcreg_tpu_torch.ops import solvers
+    from dcreg_tpu_torch.ops.degeneracy import DegeneracyAnalysis
+
+    def wrapped(graph=None):
+        if graph is not False or calls:
+            return run(graph)
+        launch = solvers._launch_cuda
+
+        def spy(H, g, analysis, thresholds):
+            calls.append((H.clone(), g.clone(), DegeneracyAnalysis(
+                *[f.clone() for f in analysis])))
+            return launch(H, g, analysis, thresholds)
+
+        solvers._launch_cuda = spy
+        try:
+            return run(graph)
+        finally:
+            solvers._launch_cuda = launch
+
+    return wrapped
+
+
+def pcg6_entry(rows, launches):
+    """pcg6's entry of the ``kernels`` line: the times of the map pass's
+    B = 1 row, and each row's."""
+    b1 = rows["B1_map_pass"]
+    return {"name": "pcg6 solve_pcg_fast", "route": "cuda",
+            "source": "dcreg_tpu_torch/csrc/pcg6.cu", "replaces": None,
+            "launches": int(sum(launches.values())),
+            "launches_by_path": launches,
+            "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": None,
+            "shapes": {k: {f: v[f] for f in (
+                "batch", "systems", "pcg_systems", "timed_pcg_trips", "ms",
+                "plain_ms", "bound_ms", "bound_by", "pcg_max_rel")}
+                for k, v in rows.items()}}
+
+
+def stacked_solves(calls):
+    """One call of the given B = 1 calls stacked."""
+    from dcreg_tpu_torch.ops.degeneracy import DegeneracyAnalysis
+    return (torch.cat([c[0] for c in calls]), torch.cat([c[1] for c in calls]),
+            DegeneracyAnalysis(*[torch.cat(f) for f in zip(
+                *[c[2] for c in calls])]))
 
 
 # --------------------------------------------------------------------------
@@ -2005,11 +2223,15 @@ def run_corridor(device: str = "cuda"):
     reference envelope, overflow, degenerate frames, the recorded raw ATE
     of DCReg, ME-TSVD and NONE, and DCReg's poses equal to NONE's; K1
     held bit for bit against its plain twin at the corridor loop's own
-    call (frame 0's reused list and live mask); then two DCReg and two
-    ME-TSVD frames under the profiler.  Returns K1's launches in ``main``
-    and the K1 check's row."""
+    call (frame 0's reused list and live mask); pcg6 against its plain
+    twin on DCReg's own systems, which take PCG (every frame is
+    degenerate), recorded from an eager pass: each as launched (B = 1)
+    and the first 128 stacked; then two DCReg and two ME-TSVD frames
+    under the profiler.  Returns K1's launches in ``main``, the K1
+    check's row, the pcg6 rows and pcg6's launches in ``main``."""
     from dcreg_tpu_torch.io.tum import load_tum
     from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import solvers as tsol
     from dcreg_tpu_torch.scripts import run_corridor_experiment as rce
     t_start = time.perf_counter()
     with open(CORRIDOR_RECORDED) as f:
@@ -2032,9 +2254,11 @@ def run_corridor(device: str = "cuda"):
 
     out_dir = rce.default_out_dir()
     tk.block_knn_keys.launches = 0
+    tsol.solve_pcg_fast.launches = 0
     rc, seconds = wall(lambda: rce.main(out_dir, device, inputs=inp,
                                         after_method=after_method))
     launches = tk.block_knn_keys.launches
+    pcg6_launches = tsol.solve_pcg_fast.launches
     with open(os.path.join(out_dir, "corridor_summary.json")) as f:
         summary = json.load(f)
     poses = {m: load_tum(os.path.join(out_dir, f"{m}.tum"))[1]
@@ -2074,6 +2298,18 @@ def run_corridor(device: str = "cuda"):
                  or all(r["k1_launches"] > 0 for r in rows.values()))):
         raise RuntimeError(f"corridor gates failed: {row}")
 
+    det, hand = next((d, h) for m, d, h in rce.METHODS if m == "DCReg")
+    solves = []
+    recording_solves(lambda graph: rce.run_method(
+        inp, det, hand, device, graph=graph), solves)(False)
+    first = next((i for i, c in enumerate(solves)
+                  if bool(c[2].is_degenerate.any())), 0)
+    pcg6_rows = {"B1_corridor": check_pcg6("B1_corridor", solves, first),
+                 "B128_corridor": check_pcg6(
+                     "B128_corridor", [stacked_solves(solves[:128])])}
+    if min(r["pcg_systems"] for r in pcg6_rows.values()) == 0:
+        raise RuntimeError(f"the corridor's DCReg took no PCG: {pcg6_rows}")
+
     for name, det, hand in rce.METHODS:
         if name not in ("DCReg", "ME-TSVD"):
             continue
@@ -2090,7 +2326,7 @@ def run_corridor(device: str = "cuda"):
         prof["kernels_per_icp_iteration"] = prof["kernel_launches"] / trips
         prof["phase10_s"] = time.perf_counter() - t_start
         emit(prof)
-    return launches, k1_row
+    return launches, k1_row, pcg6_rows, pcg6_launches
 
 
 def run_map_baselines(ctx, device: str = "cuda"):
@@ -2172,6 +2408,7 @@ def run(seed: int, device: str = "cuda"):
         estimate_odometry_capacities, prepare_frames, run_odometry_map)
     from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import solvers as tsol
     from dcreg_tpu_torch.ops.block_sparse import (build_block_index,
                                                   build_map_index,
                                                   kd_block_order,
@@ -2260,7 +2497,7 @@ def run(seed: int, device: str = "cuda"):
     check_k1_graph("a_map_B1_slotted_nomask", a_inputs)
 
     params = ICPParams()
-    launches = {}
+    launches, pcg6_launches = {}, {}
 
     # ---- 2. the localization loop, replayed as CUDA graphs ---------------
     def run_odom(n=FRAMES, graph=None, mi=mindex, wt=world_t, shift=None):
@@ -2281,8 +2518,10 @@ def run(seed: int, device: str = "cuda"):
     held_mib = [(torch.cuda.memory_allocated() - mem0[0]) / 2 ** 20,
                 (torch.cuda.memory_reserved() - mem0[1]) / 2 ** 20]
     tk.block_knn_keys.launches = 0
+    tsol.solve_pcg_fast.launches = 0
     res, dt = wall(run_odom)
     launches["odometry"] = tk.block_knn_keys.launches
+    pcg6_launches["odometry"] = tsol.solve_pcg_fast.launches
     est = res.poses.cpu().numpy()
     te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
     odom = {"phase": "odometry", "frames": FRAMES, "graphed": True,
@@ -2302,9 +2541,13 @@ def run(seed: int, device: str = "cuda"):
     if not (bool(res.converged.all()) and odom["ovf_max"] == 0
             and te.mean() < 0.05 and te.max() < 0.10):
         raise RuntimeError(f"odometry gates failed: {odom}")
-    emit(eager_vs_graphed(lambda graph: run_odom(EAGER_CHECK_FRAMES, graph),
-                          "odometry_eager_vs_graphed"))
+    map_solves, pcg6_rows = [], {}
+    emit(eager_vs_graphed(recording_solves(
+        lambda graph: run_odom(EAGER_CHECK_FRAMES, graph), map_solves),
+        "odometry_eager_vs_graphed"))
     emit(stale_cache_check(run_odom, res, world, device))
+    # pcg6 on the eager pass's own systems, each as launched (B = 1)
+    pcg6_rows["B1_map_pass"] = check_pcg6("B1_map_pass", map_solves)
     for graph in (None, False):
         held = {}
 
@@ -2330,9 +2573,14 @@ def run(seed: int, device: str = "cuda"):
 
     wall(mc)
     tk.block_knn_keys.launches = 0
+    tsol.solve_pcg_fast.launches = 0
     out, dt = wall(mc)
     launches["mc_map"] = tk.block_knn_keys.launches
-    eager = batch_against_eager(out, mc)
+    pcg6_launches["mc_map"] = tsol.solve_pcg_fast.launches
+    mc_solves = []
+    eager = batch_against_eager(out, recording_solves(mc, mc_solves))
+    # pcg6 on the eager rerun's own systems, each as launched (B = 128)
+    pcg6_rows["B128_mc_map"] = check_pcg6("B128_mc_map", mc_solves)
     last = (out.iterations.long() - 1).clamp(min=0)
     lane = torch.arange(BATCH, device=last.device)
     te = out.log.trans_error[lane, last].cpu().numpy()
@@ -2362,8 +2610,10 @@ def run(seed: int, device: str = "cuda"):
 
     wall(blk_run)
     tk.block_knn_keys.launches = 0
+    tsol.solve_pcg_fast.launches = 0
     out, dt = wall(blk_run)
     launches["mc_block"] = tk.block_knn_keys.launches
+    pcg6_launches["mc_block"] = tsol.solve_pcg_fast.launches
     eager = batch_against_eager(out, blk_run)
     ref = blk_run(plain=True)
     last = (out.iterations.long() - 1).clamp(min=0)
@@ -2390,10 +2640,14 @@ def run(seed: int, device: str = "cuda"):
     # ---- K1's entry of the kernels line (phase 7) -------------------------
     if min(launches.values()) <= 0:
         raise RuntimeError(f"K1 not launched on every path: {launches}")
+    if min(pcg6_launches.values()) <= 0:
+        raise RuntimeError(f"pcg6 not launched on every path: "
+                           f"{pcg6_launches}")
     a = rows["a_map_B1_slotted_nomask"]
     ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
            "T_pre2": T_pre2, "odom_poses": est.astype(np.float64),
-           "mindex": mindex, "world_t": world_t, "caps": (S, G, P)}
+           "mindex": mindex, "world_t": world_t, "caps": (S, G, P),
+           "pcg6": (pcg6_rows, pcg6_launches)}
     return ctx, {
         "name": "K1 block_knn_keys", "route": "cuda",
         "source": "dcreg_tpu_torch/csrc/block_knn.cu",
@@ -2413,8 +2667,9 @@ def run(seed: int, device: str = "cuda"):
 def build_kernels():
     """Build every CUDA source at once (one nvcc each, in parallel)."""
     from concurrent.futures import ThreadPoolExecutor
-    from dcreg_tpu_torch.ops import block_knn, knn_kernels
-    mods = {"block_knn.cu": block_knn, "knn.cu": knn_kernels}
+    from dcreg_tpu_torch.ops import block_knn, knn_kernels, solvers
+    mods = {"block_knn.cu": block_knn, "knn.cu": knn_kernels,
+            "pcg6.cu": solvers}
     with ThreadPoolExecutor(len(mods)) as ex:
         futures = {name: ex.submit(m.build_library)
                    for name, m in mods.items()}
@@ -2472,7 +2727,8 @@ def main():
         k2["launches_by_path"][path] = n
         k2["launches_from_replays_by_path"][path] = \
             kn.knn_candidates.launches_replayed - replayed
-    corridor, k1_corridor = run_corridor()
+    corridor, k1_corridor, pcg6_corridor, pcg6_corridor_launches = \
+        run_corridor()
     k1["shapes"]["corridor_live_B1_reuse_mask"] = {
         f: k1_corridor[f] for f in k1["shapes"]["a_map_B1_slotted_nomask"]}
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_corridor["max_abs_err"])
@@ -2483,7 +2739,10 @@ def main():
     emit({"phase": "graphs", "captures": graphs.CACHE.captures,
           "capture_s": graphs.CACHE.capture_seconds,
           "cached": len(graphs.CACHE), "pools_mib": graph_pools_mib()})
-    emit({"kernels": [k1, k2, k3]})
+    pcg6_rows, pcg6_launches = ctx["pcg6"]
+    pcg6_rows.update(pcg6_corridor)
+    pcg6_launches["corridor"] = pcg6_corridor_launches
+    emit({"kernels": [k1, k2, k3, pcg6_entry(pcg6_rows, pcg6_launches)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

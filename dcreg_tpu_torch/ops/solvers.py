@@ -6,13 +6,25 @@ batch of systems advances together and each stops updating where it
 converged.  The handling method is a static enum; the JAX module's
 traced-int-code dispatch (one XLA compile for the whole method matrix)
 has no counterpart here.  Batched over leading dimensions.
+
+``solve_pcg_fast``, the map loop's solve, is a kernel boundary: a CUDA
+tensor launches the hand-written kernel pcg6 (``csrc/pcg6.cu``, built on
+first use with nvcc and bound with ctypes; one launch where the plain
+form runs 637 small ops), a CPU tensor takes the plain PyTorch twin
+``solve_pcg_fast_plain``.  The wrapper counts its launches through
+``graphs.note_launch``, so a launch inside a captured CUDA graph counts
+once per replay.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
 
+from .. import cuda_build, graphs
 from . import linalg
 from .degeneracy import (DegeneracyAnalysis, DegeneracyThresholds,
                          HandlingMethod, _block_diag, _eye6_like,
@@ -143,11 +155,11 @@ def _no_iters(g):
     return torch.full(g.shape[:-1], -1, dtype=torch.int32, device=g.device)
 
 
-def solve_pcg_fast(H, g, analysis: DegeneracyAnalysis,
-                   thresholds: DegeneracyThresholds):
-    """PRECONDITIONED_CG for the in-loop fast path: reads only the Schur
-    fields; PCG where degenerate or where Cholesky fails, unrolled
-    Cholesky otherwise."""
+def solve_pcg_fast_plain(H, g, analysis: DegeneracyAnalysis,
+                         thresholds: DegeneracyThresholds):
+    """Plain PyTorch twin of pcg6: PRECONDITIONED_CG for the in-loop fast
+    path, reading only the Schur fields; PCG where degenerate or where
+    Cholesky fails, unrolled Cholesky otherwise."""
     P = targeted_preconditioner(analysis, thresholds.kappa_target)
     x_pcg, pcg_iters, pcg_resid = pcg_unrolled(
         H, g, P, thresholds.pcg_max_iter, thresholds.pcg_tolerance)
@@ -160,6 +172,109 @@ def solve_pcg_fast(H, g, analysis: DegeneracyAnalysis,
         pcg_residual=torch.where(use_pcg, pcg_resid, _nan_like(g)),
         cond_PH=_nan_like(g))
     return x, info
+
+
+# ---------------------------------------------------------------------------
+# pcg6: build, bind, launch
+# ---------------------------------------------------------------------------
+
+CSRC = cuda_build.CSRC / "pcg6.cu"
+
+# the kernel's operands in its order: (analysis field, or H and g;
+# trailing shape); every one carries H's leading batch dimensions
+_OPERANDS = (("H", (6, 6)), ("g", (6,)), ("lambda_schur_rot", (3,)),
+             ("lambda_schur_trans", (3,)), ("V_schur_rot", (3, 3)),
+             ("V_schur_trans", (3, 3)), ("schur_valid", ()),
+             ("is_degenerate", ()))
+
+
+def build_library() -> dict:
+    """Compile ``csrc/pcg6.cu`` with the shared nvcc command
+    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
+    Returns {"path", "seconds", "log"}."""
+    return cuda_build.build_library(CSRC, "dcreg_pcg6", "pcg6")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(build_library()["path"])
+    fn = lib.dcreg_pcg6
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, i, i,
+                   ctypes.c_float, ctypes.c_float, p]
+    fn.restype = i
+    return lib
+
+
+def kernel_operands(H, g, analysis: DegeneracyAnalysis):
+    """(nb, views, strides): the kernel's eight operands with their
+    leading batch dimensions merged into one of ``nb`` systems (a view of
+    the caller's tensor wherever they merge, as they do for every
+    caller's layout, so no copy runs), and their element strides in the
+    kernel's order."""
+    batch = tuple(H.shape[:-2])
+    nb = math.prod(batch)
+    views = []
+    for name, tail in _OPERANDS:
+        t = {"H": H, "g": g}.get(name)
+        if t is None:
+            t = getattr(analysis, name)
+        if tuple(t.shape) != batch + tail:
+            raise ValueError(f"pcg6: {name} has shape {tuple(t.shape)}, "
+                             f"expected {batch + tail}")
+        views.append(t.reshape((nb,) + tail))
+    return nb, views, [s for v in views for s in v.stride()]
+
+
+def _launch_cuda(H, g, analysis: DegeneracyAnalysis,
+                 thresholds: DegeneracyThresholds):
+    dev = H.device
+    if dev.type != "cuda":
+        raise ValueError(f"pcg6 runs on a CUDA device, got {dev}")
+    nb, views, strides = kernel_operands(H, g, analysis)
+    for (name, _), v in zip(_OPERANDS, views):
+        want = (torch.bool if name in ("schur_valid", "is_degenerate")
+                else torch.float32)
+        if v.dtype != want or v.device != dev:
+            raise TypeError(f"pcg6: {name} is {v.dtype} on {v.device}, "
+                            f"expected {want} on {dev}")
+    batch = H.shape[:-2]
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.empty(batch + (6,), **f32)
+    P = torch.empty(batch + (6, 6), **f32)
+    W = torch.empty(batch + (6, 6), **f32)
+    iters = torch.empty(batch, dtype=torch.int32, device=dev)
+    resid = torch.empty(batch, **f32)
+    cond = torch.empty(batch, **f32)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _library().dcreg_pcg6(
+        *(v.data_ptr() for v in views), c_strides, len(strides),
+        x.data_ptr(), P.data_ptr(), W.data_ptr(), iters.data_ptr(),
+        resid.data_ptr(), cond.data_ptr(), nb, int(thresholds.pcg_max_iter),
+        float(thresholds.pcg_tolerance), float(thresholds.kappa_target),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"pcg6 kernel launch failed: cudaError {rc}")
+    graphs.note_launch(solve_pcg_fast)
+    return x, SolveInfo(P_preconditioner=P, W_adaptive=W,
+                        pcg_iterations=iters, pcg_residual=resid,
+                        cond_PH=cond)
+
+
+def solve_pcg_fast(H, g, analysis: DegeneracyAnalysis,
+                   thresholds: DegeneracyThresholds):
+    """PRECONDITIONED_CG for the in-loop fast path (the boundary of
+    pcg6): CPU tensors take the plain twin ``solve_pcg_fast_plain``; CUDA
+    tensors launch the kernel, float32 as the port runs on the card (or
+    raise)."""
+    if H.device.type == "cpu":
+        return solve_pcg_fast_plain(H, g, analysis, thresholds)
+    return _launch_cuda(H, g, analysis, thresholds)
+
+
+solve_pcg_fast.launches = 0
+solve_pcg_fast.launches_replayed = 0  # those of them made by graph replays
 
 
 def _solve_static(H, g, method: HandlingMethod,

@@ -177,10 +177,12 @@ def prepare(device, world=None, frames_n=FRAMES, scan_points=SCAN_POINTS):
             "caps": caps, "params": ICPParams(max_iterations=MAX_ITERATIONS)}
 
 
-def run_method(inp, detection, handling, device, n_frames=None):
+def run_method(inp, detection, handling, device, n_frames=None,
+               graph=None):
     """``run_odometry_map`` of one method over the first ``n_frames``
     frames (all by default), seeded one frame before the sequence with
-    the known initial velocity, full per-frame telemetry."""
+    the known initial velocity, full per-frame telemetry; ``graph`` as
+    ``run_odometry_map`` takes it."""
     S, G, P = inp["caps"]
     frames = inp["frames_s"] if n_frames is None \
         else inp["frames_s"][:n_frames]
@@ -190,7 +192,7 @@ def run_method(inp, detection, handling, device, n_frames=None):
         icp_params=inp["params"], num_supers=S, max_per_query=G,
         num_pairs=P, initial_cull_radius=R_CULL0,
         reuse_margin=REUSE_MARGIN, frame_analysis_fast=False,
-        device=device)
+        device=device, graph=graph)
 
 
 def csv_rows(name, res):
