@@ -10,7 +10,10 @@ sm_90a), then runs on the card:
      (b) map mode, B=128, slot-local ids, lane mask; (c) BlockIndex mode,
      B=128, global ids, lane mask; (a_live) the localization loop's own
      call: the reused pair list with its live mask; (e) B=33, two mask
-     words; (f) B=1 with one query block's run max_per_query long; each
+     words; (f) B=1 with one query block's run max_per_query long;
+     (g) the per-lane mode at the fleet's shape: 8 scans (frames 0, 16,
+     ..., 112) each at its own seed, their reused pair lists in one with
+     the live mask, as ``run_odometry_fleet`` calls it; each
      row prints the split and CTA count the wrapper launched; and K1
      alone captured in a CUDA graph and replayed, bit for bit, one launch
      counted per replay;
@@ -425,6 +428,54 @@ def k1_inputs(kind, src_xyz, index, Rs, ts, radius, caps, device,
                 index_bits=ib, scale=scale, clamp=clamp)
 
 
+FLEET_SENSORS, FLEET_SPACING = 8, 16
+
+
+def k1_fleet_inputs(frames_s, index, Rs, ts, caps, device):
+    """The inputs of K1's per-lane mode at a fleet tick's first step: the
+    lanes' scans (L, N, 3) at their seeds (Rs, ts), each lane's pair list
+    culled at R_CULL0 + REUSE_MARGIN in a capacity of its own, in one
+    list with the live mask at R_CULL0, keys at the search radius: what
+    ``run_odometry_fleet``'s step hands K1."""
+    from dcreg_tpu_torch.models.icp import ICPParams
+    from dcreg_tpu_torch.ops import block_knn as tk
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    src, Rs, ts = f32(frames_s), f32(Rs), f32(ts)
+    L, N = src.shape[:2]
+    nq = -(-N // tk.QB)
+    src_q = torch.cat([src, src[:, -1:].expand(L, nq * tk.QB - N, 3)],
+                      1).reshape(L, nq, tk.QB, 3)
+    qlo, qhi = (x.reshape(L * nq, 3) for x in tk.exact_qbox(src_q, Rs, ts))
+    qbox = (qlo[None], qhi[None])
+    sel, ok, sovf = tk.super_candidates(None, None, None, None, index,
+                                        R_CULL0 + REUSE_MARGIN, caps["S"],
+                                        qbox=qbox, lanes=L)
+    rel_l, bids = tk.hier_relevance(None, None, None, None, index, sel, ok,
+                                    R_CULL0 + REUSE_MARGIN, qbox=qbox)
+    bi = index.block
+    qid, tid, slot, _, _, ovf, rovf = tk.make_pair_list_slotted(
+        rel_l[0], caps["P"], caps["G"], block_ids=bids, nbt=bi.num_blocks,
+        lanes=L)
+    if int((ovf + rovf + sovf).sum()) != 0:
+        raise RuntimeError("K1 fleet inputs overflow the pair lists")
+    pad = qid >= L * nq
+    t_safe = torch.where(pad, 0, tid).long()
+    q_safe = torch.where(pad, 0, qid).long()
+    gap = torch.clamp(torch.maximum(qlo[q_safe] - bi.hi[t_safe],
+                                    bi.lo[t_safe] - qhi[q_safe]), min=0.0)
+    live = ((gap * gap).sum(-1) <= R_CULL0 ** 2) & ~pad
+    ib = tk._index_bits(caps["G"] * tk.TB)
+    _, _, clamp, scale = tk.key_params(ICPParams().corr.search_radius, ib)
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return dict(src_blocks=src_q.reshape(L * nq, tk.QB, 3).transpose(
+                    1, 2).contiguous(),
+                tgt=bi.blocks,
+                poses=torch.cat([Rs.reshape(L, 9), ts], 1).contiguous(),
+                qid=i32(qid), tid=i32(tid), pid=i32(slot),
+                lane_mask=i32(live[:, None]), index_bits=ib, scale=scale,
+                clamp=clamp, nq_lane=nq)
+
+
 def k1_bound(a):
     """Least time for the work of one K1 call on this data: the larger of
     bytes moved (each input read once, each output written once) over the
@@ -432,6 +483,8 @@ def k1_bound(a):
     2 add, 1 min, 1 scale) over the f32 rate.  Only live (pair, lane)
     combinations and the target blocks they touch count."""
     nq, B = a["src_blocks"].shape[0], a["poses"].shape[0]
+    if a.get("nq_lane"):
+        B = 1                  # the per-lane mode: one lane per block
     real = a["qid"] < nq
     if a["lane_mask"] is None:
         live_lanes = torch.where(real, B, 0)
@@ -490,17 +543,19 @@ def check_k1(name, a):
                            "pid", "lane_mask", "index_bits", "scale",
                            "clamp")]
     nq, B = a["src_blocks"].shape[0], a["poses"].shape[0]
+    mode = {"nq_lane": a.get("nq_lane", 0)}
     tk.block_knn_keys.last_grid = None
-    keys = tk.block_knn_keys(*args)
+    keys = tk.block_knn_keys(*args, **mode)
     grid = tk.block_knn_keys.last_grid or {"nsplit": None, "ctas": None}
-    ref = tk.block_knn_keys(*args, plain=True)
+    ref = tk.block_knn_keys(*args, plain=True, **mode)
     mismatches = int((keys != ref).sum())
     max_abs_err = int((keys.long() - ref.long()).abs().max())
     if mismatches:
         raise RuntimeError(f"K1 {name}: {mismatches} keys differ from the "
                            f"plain version (max |diff| {max_abs_err})")
-    ms = time_ms(lambda: tk.block_knn_keys(*args), 20)
-    plain_ms = time_ms(lambda: tk.block_knn_keys(*args, plain=True), 2)
+    ms = time_ms(lambda: tk.block_knn_keys(*args, **mode), 20)
+    plain_ms = time_ms(lambda: tk.block_knn_keys(*args, plain=True, **mode),
+                       2)
     qid = a["qid"].long()
     runs = torch.bincount(qid[qid < nq], minlength=nq)
     row = {"phase": "k1_check", "shape": name, "B": int(B), "nq": int(nq),
@@ -2494,6 +2549,17 @@ def run(seed: int, device: str = "cuda"):
     }
     rows["f_map_B1_long_run"] = check_k1("f_map_B1_long_run",
                                          long_run_inputs(a_inputs, G))
+    # the fleet's tick: each robot at its constant-velocity seed
+    known = [T_pre2, T_pre1] + list(gt)
+    lanes = [min(FLEET_SPACING * r, FRAMES - 1)
+             for r in range(FLEET_SENSORS)]
+    seeds = [known[f + 1] @ np.linalg.inv(known[f]) @ known[f + 1]
+             for f in lanes]
+    rows["g_fleet8_per_lane_reuse_mask"] = check_k1(
+        "g_fleet8_per_lane_reuse_mask", k1_fleet_inputs(
+            frames_s[lanes], mindex, np.stack([T[:3, :3] for T in seeds]),
+            np.stack([T[:3, 3] for T in seeds]), {"S": S, "G": G, "P": P},
+            device))
     check_k1_graph("a_map_B1_slotted_nomask", a_inputs)
 
     params = ICPParams()

@@ -47,6 +47,15 @@
 //    the float chains interleave, and branches once per tile when any of
 //    them passes.
 //
+// 5. Per-lane query blocks (nq_lane > 0).  Where every lane registers a
+//    scan of its own (a fleet of sensors against one map), the query
+//    blocks are the lanes' blocks stacked, (B * nq_lane, 3, 128), and
+//    block q belongs to lane q / nq_lane alone: the grid is (nq, nsplit,
+//    1), a CTA takes its pose from its block's lane, and the output has
+//    one lane row per block.  A mask, where given, is B = 1's: one word
+//    per pair, bit 0 (the live mask of a reused pair list).  The ids keep
+//    B = 1's width.
+//
 // What still holds it above the floor: the insertions.  A query point's
 // list takes about K ln(n / K) of n candidates that come in no particular
 // order, at other times in each of a warp's 32 threads, so a warp walks
@@ -97,15 +106,18 @@ block_knn_keys_kernel(const int* __restrict__ run_start,
                       const float* __restrict__ tgt,
                       const float* __restrict__ poses,
                       int* __restrict__ dst, int B, int nsplit,
-                      int index_bits, float scale, float clamp) {
+                      int index_bits, float scale, float clamp,
+                      int nq_lane) {
   const int q = blockIdx.x;
   const int s = blockIdx.y;
   const int b = blockIdx.z;
   const int t = threadIdx.x;
+  // the pose lane: the CTA's own, or the one its query block belongs to
+  const int pose = nq_lane > 0 ? q / nq_lane : b;
 
   __shared__ float4 s_tgt[TB];
   __shared__ float s_pose[12];
-  if (t < 12) s_pose[t] = poses[b * 12 + t];
+  if (t < 12) s_pose[t] = poses[pose * 12 + t];
   const float sx = src[(q * 3 + 0) * QB + t];
   const float sy = src[(q * 3 + 1) * QB + t];
   const float sz = src[(q * 3 + 2) * QB + t];
@@ -223,21 +235,25 @@ block_knn_merge_kernel(const int* __restrict__ partial,
 // int32 lane bit words or null; src (nq, 3, 128) f32; tgt (nbt + 1, 3, 128)
 // f32; poses (B, 12) f32; out (nq, B, 8, 128) int32; nsplit >= 1 pieces
 // per run; partial (nq, nsplit, B, 5, 128) int32 scratch when nsplit > 1
-// (then the merge kernel follows), else unused.
+// (then the merge kernel follows), else unused.  nq_lane > 0 is the
+// per-lane mode: query block q takes pose q / nq_lane, B is 1 (one lane
+// row per block, a mask's bit 0).
 extern "C" int dcreg_block_knn_keys(const int* run_start, const int* tid,
                                     const int* pid, const int* mask,
                                     int n_words, const float* src,
                                     const float* tgt, const float* poses,
                                     int* out, int* partial, int nq, int B,
                                     int nsplit, int index_bits, float scale,
-                                    float clamp, void* stream) {
+                                    float clamp, int nq_lane, void* stream) {
   if (nq <= 0 || B <= 0) return 0;
-  if (nsplit < 1 || (nsplit > 1 && partial == nullptr))
+  if (nsplit < 1 || (nsplit > 1 && partial == nullptr) ||
+      (nq_lane > 0 && B != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   block_knn_keys_kernel<<<dim3(nq, nsplit, B), QB, 0, st>>>(
       run_start, tid, pid, mask, n_words, src, tgt, poses,
-      nsplit > 1 ? partial : out, B, nsplit, index_bits, scale, clamp);
+      nsplit > 1 ? partial : out, B, nsplit, index_bits, scale, clamp,
+      nq_lane);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
   block_knn_merge_kernel<<<dim3(nq, B), QB, 0, st>>>(partial, out, B,

@@ -41,7 +41,8 @@ Every loop class (``BatchLoop``, ``MapLoop``, ``PairLoop``,
 ``SuperLocLoop``, ``PoseGraphLoop``, ``ShardedLoop``) has ``key()`` and
 ``parts(state)``; ``bind`` gives the runner of its parts and their
 state, and ``drive`` runs one pass of the loop (a loop with no ``step``
-part, as ``SuperLocLoop``, runs with ``max_iterations`` 0).  A loop
+part, as ``SuperLocLoop``, runs with ``max_iterations`` 0);
+``drive_lanes`` runs a loop of independent lanes (a fleet's ``MapLoop``).  A loop
 whose parts hold collectives captures in ``capture_error_mode``
 "thread_local" (``ShardedLoop``).
 """
@@ -405,6 +406,30 @@ def drive(run, S, max_iterations: int) -> None:
                 break
         run("step")
     run("epilogue")
+
+
+def drive_lanes(run, S, max_iterations: int, lanes: int) -> tuple:
+    """``drive`` for a loop of ``lanes`` independent lanes whose step
+    writes ``left``, (lanes still running, lanes aborted or over their
+    pair list): one host read of it after each step, until no lane runs
+    or ``max_iterations`` steps ran; then the epilogue.  Returns (steps,
+    lane steps: the sum over steps of the lanes running in each, so the
+    lanes' iterations, lanes failed at the last read), all from the reads
+    the loop makes anyway."""
+    run("prologue")
+    steps = lane_steps = failed = 0
+    running = lanes
+    for _ in range(max_iterations):
+        run("step")
+        steps += 1
+        lane_steps += running
+        STATS.host_reads += 1
+        with tracing.span("graphs.done_read"):
+            running, failed = S.left.tolist()     # one host sync per step
+        if not running:
+            break
+    run("epilogue")
+    return steps, lane_steps, failed
 
 
 def detached(tree):

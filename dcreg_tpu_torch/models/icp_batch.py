@@ -59,16 +59,22 @@ def _index_device(index):
 
 class BatchLoop:
     """One configuration of ``icp_batch_so3`` split into the parts of its
-    compiled loop, each reading and writing a ``graphs.State`` in place:
+    compiled loop, each reading and writing a ``graphs.State`` in place.
+    Its lanes register one source scan from B initial poses, or, with
+    ``per_lane`` (map mode with a reused pair list: the fleet's map
+    loop), B scans of their own, one per lane, each with its own pair
+    list, cull and query blocks, and K1 in its per-lane mode:
 
       * ``load`` copies the per-call inputs into the state: source
-        ``src``, ``R0``, ``t0``, ``T_gt``;
+        ``src`` ((N, 3), or (B, N, 3) per lane), ``R0``, ``t0``,
+        ``T_gt``;
       * ``prologue`` the static query-block prep, in reuse mode the cull
         and the pair list at the initial pose, and the loop state;
       * ``step`` one iteration for every lane still active (``iterate``)
         and the state update, writing the history at the device-side
         iteration counter ``it`` and setting the ``done`` flag the host
-        reads once per step;
+        reads once per step (per lane: ``left``, the lanes still running
+        and those aborted or over their pair list, ``graphs.drive_lanes``);
       * ``epilogue`` the reuse guard, ``H_last``, and the telemetry pass
         or the covariance.
 
@@ -80,10 +86,13 @@ class BatchLoop:
                  detection: DetectionMethod, handling: HandlingMethod,
                  params: ICPParams, num_pairs: int, num_supers: int,
                  max_per_query: int, initial_cull_radius, reuse_pair_list,
-                 device, plain_knn: bool = False):
+                 device, plain_knn: bool = False, per_lane: bool = False):
         self.map_mode = isinstance(index, MapIndex)
         if self.map_mode and (num_supers <= 0 or max_per_query <= 0):
             raise ValueError("map mode needs num_supers and max_per_query")
+        if per_lane and not (self.map_mode and reuse_pair_list > 0):
+            raise ValueError("a source per lane needs map mode with a "
+                             "reused pair list (reuse_pair_list > 0)")
         self.index, self.target = index, target_xyz
         self.mindex = index if self.map_mode else None
         self.bi = index.block if self.map_mode else index
@@ -93,7 +102,9 @@ class BatchLoop:
         self.num_pairs, self.num_supers = num_pairs, num_supers
         self.max_per_query = max_per_query
         self.reuse_pair_list = float(reuse_pair_list)
-        self.reuse = self.map_mode and self.reuse_pair_list > 0 and B == 1
+        self.per_lane = per_lane
+        self.reuse = self.map_mode and self.reuse_pair_list > 0 and (
+            B == 1 or per_lane)
         self.radius = params.corr.search_radius
         self.r0 = float(self.radius if initial_cull_radius is None
                         else initial_cull_radius)
@@ -104,6 +115,8 @@ class BatchLoop:
 
     def key(self) -> tuple:
         mode = "reuse" if self.reuse else "map" if self.map_mode else "block"
+        if self.per_lane:
+            mode = "reuse_lanes"
         return ("icp_batch_so3", mode, self.B, self.N, self.nq,
                 self.num_pairs, self.num_supers, self.max_per_query,
                 self.detection, self.handling, self.params, self.r0,
@@ -121,23 +134,41 @@ class BatchLoop:
         f32 = lambda v: torch.full((), v, dtype=dtype, device=dev)
         src = S.src
         # ---- static query-block prep (body frame) ------------------------
-        src_pad = torch.cat([src, src[-1:].expand(nq * QB - N, 3)])
-        src_q = src_pad.reshape(nq, QB, 3)
-        S.put("src_q", src_q)
-        S.put("src_blocks", src_q.transpose(1, 2).contiguous())  # (nq,3,QB)
-        S.put("slo", torch.amin(src_q, dim=1))
-        S.put("shi", torch.amax(src_q, dim=1))
-        # a source point moves at most |dw| * pmax + |dv| per iteration
-        S.put("pmax", torch.sqrt(torch.amax(torch.sum(src * src, dim=1))))
+        if self.per_lane:
+            src_pad = torch.cat([src, src[:, -1:].expand(B, nq * QB - N, 3)],
+                                dim=1)
+            src_q = src_pad.reshape(B, nq, QB, 3)
+            S.put("src_q", src_q)
+            S.put("src_blocks", src_q.reshape(B * nq, QB, 3).transpose(
+                1, 2).contiguous())                          # (B*nq,3,QB)
+            S.put("slo", torch.amin(src_q, dim=2))
+            S.put("shi", torch.amax(src_q, dim=2))
+            S.put("pmax", torch.sqrt(torch.amax(torch.sum(src * src, dim=2),
+                                                dim=1)))
+        else:
+            src_pad = torch.cat([src, src[-1:].expand(nq * QB - N, 3)])
+            src_q = src_pad.reshape(nq, QB, 3)
+            S.put("src_q", src_q)
+            S.put("src_blocks", src_q.transpose(1, 2).contiguous())
+            S.put("slo", torch.amin(src_q, dim=1))
+            S.put("shi", torch.amax(src_q, dim=1))
+            # a source point moves at most |dw| * pmax + |dv| per iteration
+            S.put("pmax", torch.sqrt(torch.amax(torch.sum(src * src,
+                                                          dim=1))))
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         ovf = zero
         if self.reuse:
             bi, mindex = self.bi, self.mindex
             r_list = f32(self.r0) + f32(self.reuse_pair_list)
             qbox0 = exact_qbox(S.src_q, S.R0, S.t0)
+            lanes = 0
+            if self.per_lane:
+                # the lanes' query blocks as one lane's, each at its pose
+                qbox0 = tuple(x.reshape(1, B * nq, 3) for x in qbox0)
+                lanes = B
             sup_sel0, sup_ok0, sup_ovf0 = super_candidates(
                 S.slo, S.shi, S.R0, S.t0, mindex, r_list, self.num_supers,
-                qbox=qbox0)
+                qbox=qbox0, lanes=lanes)
             rel_l0, block_ids0 = hier_relevance(
                 S.slo, S.shi, S.R0, S.t0, mindex, sup_sel0, sup_ok0, r_list,
                 qbox=qbox0)
@@ -146,7 +177,7 @@ class BatchLoop:
                 make_pair_list_slotted(rel0, self.num_pairs,
                                        self.max_per_query,
                                        block_ids=block_ids0,
-                                       nbt=bi.num_blocks)
+                                       nbt=bi.num_blocks, lanes=lanes)
             ovf = ovf0 + run_ovf0 + sup_ovf0
             S.put("qid0", qid0)
             S.put("tid0", tid0)
@@ -154,7 +185,7 @@ class BatchLoop:
             S.put("table0", table0)
             S.put("covered0", torch.any(rel0, dim=1))
             # static per-pair target bboxes for the per-iteration LIVE mask
-            pad0 = qid0 >= nq
+            pad0 = qid0 >= (B * nq if self.per_lane else nq)
             tid_safe0 = torch.where(pad0, 0, tid0).long()
             S.put("pad0", pad0)
             S.put("p_tlo0", torch.where(pad0[:, None], 3e38,
@@ -162,6 +193,8 @@ class BatchLoop:
             S.put("p_thi0", torch.where(pad0[:, None], -3e38,
                                         bi.hi[tid_safe0]))
             S.put("qid_safe0", torch.where(pad0, 0, qid0).long())
+            if self.per_lane:
+                S.put("lane0", S.qid_safe0 // nq)    # each pair's lane
         # ---- the loop state ----------------------------------------------
         I = self.params.max_iterations
         S.put("Rs", S.R0)
@@ -222,13 +255,19 @@ class BatchLoop:
                               max_per_query=self.max_per_query)
             # live mask: pairs within this iteration's exact radius
             qlo_b, qhi_b = exact_qbox(S.src_q, Rs, ts)
-            qlo, qhi = qlo_b[0], qhi_b[0]
+            if self.per_lane:
+                qlo, qhi = qlo_b.reshape(-1, 3), qhi_b.reshape(-1, 3)
+                r_q = r_cull.reshape(-1)
+            else:
+                qlo, qhi, r_q = qlo_b[0], qhi_b[0], r_cull[0]
             qs = S.qid_safe0
             gap = torch.clamp(torch.maximum(qlo[qs] - S.p_thi0,
                                             S.p_tlo0 - qhi[qs]), min=0.0)
             d2p = torch.sum(gap * gap, dim=-1)
-            rq = r_cull[0, qs]
+            rq = r_q[qs]
             live = (d2p <= rq * rq) & ~S.pad0
+            if self.per_lane:
+                live = live & active[S.lane0]    # a done lane searches not
             lmask = live.to(torch.int32)[:, None]
         elif self.map_mode:
             mindex = self.mindex
@@ -264,7 +303,8 @@ class BatchLoop:
         vals, idx = batched_block_knn(bi, S.src_blocks, poses12, qid, tid,
                                       radius=self.radius, covered=covered,
                                       lane_mask=lmask, layout="kn",
-                                      plain=self.plain_knn, **knn_kwargs)
+                                      plain=self.plain_knn,
+                                      per_lane=self.per_lane, **knn_kwargs)
         return vals, idx, overflow
 
     def step(self, S) -> None:
@@ -325,7 +365,16 @@ class BatchLoop:
         S.put("conv", conv_new)
         S.put("abt", abt_new)
         S.put("it", S.it + 1)
-        S.put("done", torch.all(conv_new | abt_new))
+        if not self.per_lane:
+            S.put("done", torch.all(conv_new | abt_new))
+            return
+        # what the host reads after each step: lanes still running, and
+        # lanes aborted or over their pair list (the reuse guard as
+        # ``finish`` will count it)
+        bad = abt_new | (S.ovf > 0) | (2.0 * S.cum_move > self.reuse_pair_list)
+        S.put("left", torch.stack([
+            torch.sum((~(conv_new | abt_new)).to(torch.int32)),
+            torch.sum(bad.to(torch.int32))]))
 
     def finish(self, S) -> None:
         """The epilogue's first half: the reuse guard and each lane's
@@ -334,8 +383,9 @@ class BatchLoop:
         if self.reuse:
             # the static list covers iteration k only while 2x the
             # accumulated motion stays inside the margin
-            S.put("ovf", S.ovf + torch.sum(
-                (2.0 * S.cum_move > self.reuse_pair_list).to(torch.int64)))
+            breach = (2.0 * S.cum_move > self.reuse_pair_list).to(torch.int64)
+            S.put("ovf", S.ovf + (breach if self.per_lane
+                                  else torch.sum(breach)))
         last = torch.clamp(S.iters - 1, min=0).long()
         lane_ix = torch.arange(B, device=self.dev)
         hist = S.get_tuple("hist", Hist)

@@ -10,7 +10,11 @@ the card (``VoxelLoop``, ``MapLoop``):
     whose search is ``voxel_knn``; any float dtype;
   * ``run_odometry_map``, the map-scale localization loop: one B = 1
     map-mode DCReg registration with a single reused pair list per frame
-    (``icp_batch_so3``), float32.
+    (``icp_batch_so3``), float32;
+  * ``run_odometry_fleet``, one tick of that loop for a fleet of S
+    sensors against one map: one batched map-mode registration whose
+    lanes are the sensors' scans, each with its own seed, pair list and
+    answer (``MapLoop`` over ``BatchLoop`` with a source per lane).
 """
 from __future__ import annotations
 
@@ -65,9 +69,15 @@ def _seed(R_prev, t_prev, R_prev2, t_prev2, constant_velocity: bool):
     """A frame's initial pose: T_prev (T_prev2^-1 T_prev) under the
     constant-velocity model, else T_prev.  The composition squares
     rounding-level non-orthonormality, so the rotation is projected back
-    onto SO(3)."""
+    onto SO(3).  Batched over a leading lane axis where the rotations are
+    (S, 3, 3)."""
     if not constant_velocity:
         return R_prev, t_prev
+    if R_prev.ndim == 3:
+        dR = R_prev2.transpose(1, 2) @ R_prev
+        dt = torch.einsum("sji,sj->si", R_prev2, t_prev - t_prev2)
+        return se3.orthonormalize(R_prev @ dR), \
+            torch.einsum("sij,sj->si", R_prev, dt) + t_prev
     dR = R_prev2.T @ R_prev
     dt = R_prev2.T @ (t_prev - t_prev2)
     return se3.orthonormalize(R_prev @ dR), R_prev @ dt + t_prev
@@ -318,11 +328,18 @@ class MapLoop:
     the frame's analysis of ``H_last`` and writes the frame's output row
     at the device-side frame index ``f`` of preallocated ``(rows, ...)``
     tensors.  The host copies each frame's scan into the state's source
-    (``src``) before its prologue."""
+    (``src``) before its prologue.
+
+    Over a ``BatchLoop`` with a source per lane (``run_odometry_fleet``)
+    the same parts run one tick of S sensors: each lane's seed from its
+    own two previous poses, the lanes' registrations in one, and the
+    frame's analysis and output of every lane, written whole (``out.*``
+    with a leading (S,) axis; no rows, no frame index)."""
 
     def __init__(self, loop: BatchLoop, use_constant_velocity: bool,
                  frame_analysis_fast: bool, rows: int):
         self.loop, self.rows = loop, rows
+        self.fleet = loop.per_lane
         self.cv = use_constant_velocity
         self.fast = (frame_analysis_fast and loop.detection
                      is DetectionMethod.SCHUR_CONDITION_NUMBER)
@@ -333,30 +350,36 @@ class MapLoop:
 
     def load(self, S, frame0, T0, T_prev) -> None:
         S.put("src", frame0)
-        S.put("R_prev", T0[:3, :3])
-        S.put("t_prev", T0[:3, 3])
-        S.put("R_prev2", T_prev[:3, :3])
-        S.put("t_prev2", T_prev[:3, 3])
+        S.put("R_prev", T0[..., :3, :3])
+        S.put("t_prev", T0[..., :3, 3])
+        S.put("R_prev2", T_prev[..., :3, :3])
+        S.put("t_prev2", T_prev[..., :3, 3])
         S.put("T_gt", torch.eye(4, dtype=T0.dtype, device=T0.device))
-        S.put("f", torch.zeros((), dtype=torch.int64, device=T0.device))
+        if not self.fleet:
+            S.put("f", torch.zeros((), dtype=torch.int64, device=T0.device))
 
     def prologue(self, S) -> None:
         R_pred, t_pred = _seed(S.R_prev, S.t_prev, S.R_prev2, S.t_prev2,
                                self.cv)
-        S.put("R0", R_pred[None])
-        S.put("t0", t_pred[None])
+        S.put("R0", R_pred if self.fleet else R_pred[None])
+        S.put("t0", t_pred if self.fleet else t_pred[None])
         self.loop.prologue(S)
 
     def epilogue(self, S) -> None:
         self.loop.finish(S)
-        R, t = S.Rs[0], S.ts[0]
-        ana = analyze(S.H_last[0], self.loop.detection,
+        lane = slice(None) if self.fleet else 0
+        R, t = S.Rs[lane], S.ts[lane]
+        ana = analyze(S.H_last[lane], self.loop.detection,
                       self.loop.params.thresholds, fast=self.fast)
-        row = (se3.se3_matrix(R, t), S.iters[0], S.conv[0], S.abt[0],
-               S.ovf.to(torch.int32), ana.is_degenerate,
+        row = (se3.se3_matrix(R, t), S.iters[lane], S.conv[lane],
+               S.abt[lane], S.ovf.to(torch.int32), ana.is_degenerate,
                ana.degenerate_mask, ana.cond_schur_rot,
-               ana.cond_schur_trans, ana.cond_full, S.rmse[0],
-               S.fitness[0], S.num_valid[0])
+               ana.cond_schur_trans, ana.cond_full, S.rmse[lane],
+               S.fitness[lane], S.num_valid[lane])
+        if self.fleet:
+            for name, value in zip(MapOdometryResult._fields, row):
+                S.put(f"out.{name}", value)
+            return
         for name, value in zip(MapOdometryResult._fields, row):
             S.put_row(f"out.{name}", S.f, value, self.rows)
         S.put("R_prev2", S.R_prev)
@@ -395,26 +418,50 @@ def _odometry_map_impl(frames, map_xyz, mindex, T0, T_prev, detection,
                                    for name in MapOdometryResult._fields))
 
 
+def _frame_capacities(mindex, frame, T, Tp, Tp2, radius, **kw):
+    """``estimate_map_capacities`` of one frame at its hinted pose T, the
+    previous pose Tp and the constant-velocity prediction from Tp2, Tp."""
+    T, Tp, Tp2 = (np.asarray(x, np.float64) for x in (T, Tp, Tp2))
+    Tpred = Tp @ np.linalg.inv(Tp2) @ Tp
+    return estimate_map_capacities(
+        mindex, frame, [(T[:3, :3], T[:3, 3]), (Tp[:3, :3], Tp[:3, 3]),
+                        (Tpred[:3, :3], Tpred[:3, 3])], radius,
+        include_identity=False, **kw)
+
+
 def estimate_odometry_capacities(mindex, frames, traj_hint, radius,
                                  margin: float = 1.3, sup_margin: int = 2,
                                  stride: int = 1, slot_margin: float = None):
     """Static (num_supers, max_per_query, num_pairs) covering every frame:
     the max of per-frame ``estimate_map_capacities`` at the hinted pose,
-    the previous one and the constant-velocity prediction."""
+    the previous one and the constant-velocity prediction.  A fleet's
+    lanes each take these capacities (``run_odometry_fleet``), so capacities
+    estimated over every frame any sensor scans cover every lane."""
     S = G = P = 0
     for f in range(0, len(frames), max(1, stride)):
-        T = np.asarray(traj_hint[f], np.float64)
-        Tp = np.asarray(traj_hint[max(f - 1, 0)], np.float64)
-        Tp2 = np.asarray(traj_hint[max(f - 2, 0)], np.float64)
-        Tpred = Tp @ np.linalg.inv(Tp2) @ Tp
-        s, g, p = estimate_map_capacities(
-            mindex, frames[f],
-            [(T[:3, :3], T[:3, 3]), (Tp[:3, :3], Tp[:3, 3]),
-             (Tpred[:3, :3], Tpred[:3, 3])], radius,
-            margin=margin, sup_margin=sup_margin, include_identity=False,
-            slot_margin=slot_margin)
+        s, g, p = _frame_capacities(
+            mindex, frames[f], traj_hint[f], traj_hint[max(f - 1, 0)],
+            traj_hint[max(f - 2, 0)], radius, margin=margin,
+            sup_margin=sup_margin, slot_margin=slot_margin)
         S, G, P = max(S, s), max(G, g), max(P, p)
     return S, G, P
+
+
+def _map_method(detection, handling, icp_params):
+    """The map loops' detection and handling (the enums, their names, or
+    None for DCReg's Schur test and PCG) and ICP parameters (None for the
+    defaults), telemetry off."""
+    if detection is None:
+        detection = DetectionMethod.SCHUR_CONDITION_NUMBER
+    if handling is None:
+        handling = HandlingMethod.PRECONDITIONED_CG
+    if isinstance(detection, str):
+        detection = DetectionMethod[detection]
+    if isinstance(handling, str):
+        handling = HandlingMethod[handling]
+    if icp_params is None:
+        icp_params = ICPParams()
+    return detection, handling, icp_params._replace(full_telemetry=False)
 
 
 @tracing.calls("odometry.call")
@@ -426,9 +473,10 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
                      use_constant_velocity: bool = True, traj_hint=None,
                      T_prev_init=None, frame_analysis_fast: bool = True,
                      device=None, graph=None) -> MapOdometryResult:
-    """The localization loop against a map-scale prior: per frame, a
-    constant-velocity seed + one B = 1 map-mode DCReg registration with a
-    reused pair list.
+    """The localization loop of one sensor against a map-scale prior: per
+    frame, a constant-velocity seed + one B = 1 map-mode DCReg
+    registration with a reused pair list.  A fleet of sensors, one scan
+    each per tick, registers in one call of ``run_odometry_fleet``.
 
     frames (F, N, 3) body-frame scans, each kd-block-sorted
     (``prepare_frames``); map_xyz (M, 3) the sorted map ``mindex`` was
@@ -444,17 +492,8 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
     check_precise()
     dev = resolve_device(device)
     graphed = graphs.use_graphs(dev, graph)
-    if detection is None:
-        detection = DetectionMethod.SCHUR_CONDITION_NUMBER
-    if handling is None:
-        handling = HandlingMethod.PRECONDITIONED_CG
-    if isinstance(detection, str):
-        detection = DetectionMethod[detection]
-    if isinstance(handling, str):
-        handling = HandlingMethod[handling]
-    if icp_params is None:
-        icp_params = ICPParams()
-    icp_params = icp_params._replace(full_telemetry=False)
+    detection, handling, icp_params = _map_method(detection, handling,
+                                                  icp_params)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     frames = f32(frames)
     map_xyz = f32(map_xyz)
@@ -475,6 +514,93 @@ def run_odometry_map(frames, mindex, map_xyz, T0=None, detection=None,
                               float(reuse_margin),
                               bool(use_constant_velocity),
                               bool(frame_analysis_fast), dev, graphed)
+
+
+def _odometry_fleet_impl(scans, map_xyz, mindex, T0, T_prev, detection,
+                         handling, params, num_pairs, num_supers,
+                         max_per_query, initial_cull_radius, reuse_margin,
+                         use_constant_velocity, frame_analysis_fast,
+                         device, graphed) -> MapOdometryResult:
+    L, N = scans.shape[:2]
+    loop = BatchLoop(mindex, map_xyz, L, N, detection, handling, params,
+                     num_pairs, num_supers, max_per_query,
+                     initial_cull_radius, reuse_margin, device,
+                     per_lane=True)
+    mloop = MapLoop(loop, use_constant_velocity, frame_analysis_fast, 1)
+    run, S = graphs.bind(mloop, lambda S: mloop.load(S, scans, T0, T_prev),
+                         graphed, "run_odometry_fleet", device)
+    steps, lane_steps, failed = graphs.drive_lanes(
+        run, S, params.max_iterations, L)
+    tracing.FLEET.add(L, steps, lane_steps, failed)
+    with tracing.span("odometry.results"):
+        return MapOdometryResult(*(getattr(S, f"out.{name}").clone()
+                                   for name in MapOdometryResult._fields))
+
+
+@tracing.calls("odometry.fleet_call", sensors=lambda scans, *_, **__:
+               len(scans))
+def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
+                       detection=None, handling=None, icp_params=None,
+                       num_supers: int = 0, max_per_query: int = 0,
+                       num_pairs: int = 0, initial_cull_radius: float = 0.3,
+                       reuse_margin: float = 0.2,
+                       use_constant_velocity: bool = True,
+                       frame_analysis_fast: bool = True, device=None,
+                       graph=None) -> MapOdometryResult:
+    """One tick of a fleet of S sensors localizing against one map-scale
+    prior: per sensor, the constant-velocity seed from its own two last
+    poses and a map-mode DCReg registration with a reused pair list, all
+    S in one batched registration (``MapLoop`` over a ``BatchLoop`` with
+    a source per lane, K1 in its per-lane mode).
+
+    Each lane is ``run_odometry_map``'s frame, alone: its own pair list,
+    culled at its seed with radius initial_cull_radius + reuse_margin in
+    a capacity of its own (``num_pairs`` pairs per lane), its own live
+    mask, Schur test, PCG and frame analysis.  A lane that converges
+    stops moving; one that aborts or overflows changes no other lane's
+    answer; the step replays until every lane is done, with one host read
+    per step (``graphs.drive_lanes``).
+
+    scans (S, N, 3) body-frame scans, each kd-block-sorted
+    (``prepare_frames``); map_xyz (M, 3) the sorted map ``mindex`` was
+    built over; T0 (S, 4, 4) each sensor's last pose, T_prev_init
+    (S, 4, 4) the one before it.  The capacities are per lane and must
+    cover every lane (``estimate_odometry_capacities`` over the frames
+    the sensors scan).  Returns a ``MapOdometryResult`` whose fields lead
+    with (S,), one row per sensor.  Runs as ``run_odometry_map`` does: on
+    the card the parts replay CUDA graphs keyed on S and the statics;
+    ``graph=False`` runs them eagerly, for checking only; on the CPU they
+    run eagerly.  Each call is an ``odometry.fleet_call`` span with the
+    sensor count; ``tracing.FLEET`` counts its steps, lane iterations and
+    failed lanes from the reads the loop makes anyway."""
+    check_precise()
+    dev = resolve_device(device)
+    graphed = graphs.use_graphs(dev, graph)
+    detection, handling, icp_params = _map_method(detection, handling,
+                                                  icp_params)
+    if num_supers <= 0 or max_per_query <= 0 or num_pairs <= 0:
+        raise ValueError("pass the per-lane capacities "
+                         "(estimate_odometry_capacities)")
+    if reuse_margin <= 0:
+        raise ValueError("a fleet tick reuses each lane's pair list: "
+                         "reuse_margin must be positive")
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    scans, map_xyz = f32(scans), f32(map_xyz)
+    T0, T_prev_init = f32(T0), f32(T_prev_init)
+    L = scans.shape[0]
+    if scans.ndim != 3 or T0.shape != (L, 4, 4) \
+            or T_prev_init.shape != (L, 4, 4):
+        raise ValueError(f"scans (S, N, 3) with T0 and T_prev_init "
+                         f"(S, 4, 4); got {tuple(scans.shape)}, "
+                         f"{tuple(T0.shape)}, {tuple(T_prev_init.shape)}")
+    return _odometry_fleet_impl(scans, map_xyz, mindex, T0, T_prev_init,
+                                detection, handling, icp_params,
+                                int(num_pairs), int(num_supers),
+                                int(max_per_query),
+                                float(initial_cull_radius),
+                                float(reuse_margin),
+                                bool(use_constant_velocity),
+                                bool(frame_analysis_fast), dev, graphed)
 
 
 def prepare_frames(frames, block: int = 128) -> np.ndarray:

@@ -17,8 +17,11 @@ PyTorch twin ``block_knn_keys_plain``, which computes the same keys with
 the same operation order.  K1 splits each query block's run of pairs
 across CTAs and merges the per-split lists exactly; ``_split_bounds``
 and ``merge_partial_keys`` are that split and merge in plain torch, for
-the tests.  The cull and pair-list helpers are the JAX module's jnp code
-as torch ops.  The wrapper counts its launches through
+the tests.  In the per-lane mode (``nq_lane``) every lane brings query
+blocks of its own, stacked, and each block is answered at its own lane's
+pose only: the batched map loop of a fleet of sensors.  The cull and
+pair-list helpers are the JAX module's jnp code as torch ops.  The
+wrapper counts its launches through
 ``graphs.note_launch``, so a launch inside a captured CUDA graph counts
 once per replay.
 """
@@ -77,7 +80,7 @@ def _library():
     p = ctypes.c_void_p
     i = ctypes.c_int
     fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i,
-                   ctypes.c_float, ctypes.c_float, p]
+                   ctypes.c_float, ctypes.c_float, i, p]
     fn.restype = i
     return lib
 
@@ -142,9 +145,21 @@ def _check(t, name, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _lanes(nq: int, poses, nq_lane: int) -> int:
+    """The lane rows of K1's output: the poses, or 1 in the per-lane
+    mode, where the nq query blocks are ``nq // nq_lane`` lanes' own."""
+    if not nq_lane:
+        return poses.shape[0]
+    if nq != nq_lane * poses.shape[0]:
+        raise ValueError(f"per-lane mode: {nq} query blocks are not "
+                         f"{poses.shape[0]} lanes of {nq_lane}")
+    return 1
+
+
 def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
-                 index_bits, scale, clamp):
-    nq, B, P = src_blocks.shape[0], poses.shape[0], qid.shape[0]
+                 index_bits, scale, clamp, nq_lane=0):
+    nq, P = src_blocks.shape[0], qid.shape[0]
+    B = _lanes(nq, poses, nq_lane)
     dev = src_blocks.device
     for name, t in (("tgt", tgt), ("poses", poses), ("qid", qid),
                     ("tid", tid), ("pid", pid)):
@@ -152,7 +167,7 @@ def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
             raise ValueError(f"{name} is on {t.device}, src on {dev}")
     _check(src_blocks, "src_blocks", torch.float32, (nq, 3, QB))
     _check(tgt, "tgt", torch.float32, (tgt.shape[0], 3, TB))
-    _check(poses, "poses", torch.float32, (B, 12))
+    _check(poses, "poses", torch.float32, (poses.shape[0], 12))
     for name, t in (("qid", qid), ("tid", tid), ("pid", pid)):
         _check(t, name, torch.int32, (P,))
     n_words = 0
@@ -174,7 +189,7 @@ def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
             0 if lane_mask is None else lane_mask.data_ptr(), n_words,
             src_blocks.data_ptr(), tgt.data_ptr(), poses.data_ptr(),
             out.data_ptr(), 0 if partial is None else partial.data_ptr(),
-            nq, B, nsplit, index_bits, scale, clamp, stream)
+            nq, B, nsplit, index_bits, scale, clamp, nq_lane, stream)
     if rc != 0:
         raise RuntimeError(f"K1 block_knn kernel launch failed: "
                            f"cudaError {rc}")
@@ -184,13 +199,15 @@ def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
 
 
 def block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
-                         index_bits, scale, clamp):
+                         index_bits, scale, clamp, nq_lane=0):
     """Plain PyTorch twin of K1: the same keys, the same float operation
     order, the same lane-mask and padding semantics.  Returns
     (nq, B, KP, QB) int32: rows 0..4 the ascending 5 smallest keys of each
     (query block, lane, query point), INIT_KEY where fewer candidates;
-    rows 5..7 INIT_KEY."""
-    nq, B = src_blocks.shape[0], poses.shape[0]
+    rows 5..7 INIT_KEY.  With ``nq_lane`` (the per-lane mode) query block
+    q is answered at pose q // nq_lane alone, and B is 1."""
+    nq = src_blocks.shape[0]
+    B = _lanes(nq, poses, nq_lane)
     dev = src_blocks.device
     out = torch.full((nq, B, KP, QB), INIT_KEY, dtype=torch.int32,
                      device=dev)
@@ -204,7 +221,12 @@ def block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
     rank = torch.arange(real.numel(), device=dev) - run_start[qid_r]
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
     clamp_t, scale_t = f32(clamp), f32(scale)
-    Rm, tv = poses[:, :9], poses[:, 9:]
+    # (pairs or 1, lanes, ...): every lane at every pair, or per lane each
+    # pair at its query block's lane
+    Rm, tv = poses[None, :, :9], poses[None, :, 9:]
+    if nq_lane:
+        Rm, tv = poses[qid_r // nq_lane, None, :9], \
+            poses[qid_r // nq_lane, None, 9:]
     rows = torch.arange(TB, dtype=torch.int32, device=dev)
     if lane_mask is not None:
         words = lane_mask.reshape(qid.shape[0], -1)[real]
@@ -218,12 +240,13 @@ def block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
         p = real[sl]
         s = src_blocks[qid_r[sl]]                             # (C, 3, QB)
         g = tgt[tid[p].long()]                                # (C, 3, TB)
+        R_c, t_c = (Rm[sl], tv[sl]) if nq_lane else (Rm, tv)
         d = None
         for c in range(3):
-            q = (Rm[None, :, 3 * c, None] * s[:, None, 0, :]
-                 + Rm[None, :, 3 * c + 1, None] * s[:, None, 1, :]) \
-                + Rm[None, :, 3 * c + 2, None] * s[:, None, 2, :]
-            q = q + tv[None, :, c, None]                      # (C, B, QB)
+            q = (R_c[:, :, 3 * c, None] * s[:, None, 0, :]
+                 + R_c[:, :, 3 * c + 1, None] * s[:, None, 1, :]) \
+                + R_c[:, :, 3 * c + 2, None] * s[:, None, 2, :]
+            q = q + t_c[:, :, c, None]                        # (C, B, QB)
             diff = g[:, None, c, :, None] - q[:, :, None, :]  # (C,B,TB,QB)
             d = diff * diff if d is None else d + diff * diff
         dq = (torch.minimum(d, clamp_t) * scale_t).to(torch.int32)
@@ -249,16 +272,18 @@ def block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
 
 def block_knn_keys(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
                    index_bits: int, scale: float, clamp: float,
-                   plain: bool = False):
-    """K1's boundary: (nq, B, KP, QB) int32 top-5 keys.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (or raise).
-    ``plain=True`` forces the plain version on the card, for verification
-    against the kernel only."""
+                   plain: bool = False, nq_lane: int = 0):
+    """K1's boundary: (nq, B, KP, QB) int32 top-5 keys, or (nq, 1, KP,
+    QB) in the per-lane mode (``nq_lane`` query blocks per lane).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise).  ``plain=True`` forces the plain version on the card, for
+    verification against the kernel only."""
     if src_blocks.device.type == "cpu" or plain:
         return block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid,
-                                    lane_mask, index_bits, scale, clamp)
+                                    lane_mask, index_bits, scale, clamp,
+                                    nq_lane)
     return _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
-                        index_bits, scale, clamp)
+                        index_bits, scale, clamp, nq_lane)
 
 
 block_knn_keys.launches = 0
@@ -277,7 +302,8 @@ def key_params(radius: float, index_bits: int):
 def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
                       radius: float = 1.0, covered=None, lane_mask=None,
                       layout: str = "nk", slot=None, tid_table=None,
-                      max_per_query: int = 0, plain: bool = False):
+                      max_per_query: int = 0, plain: bool = False,
+                      per_lane: bool = False):
     """All-lane 5-NN for one ICP iteration.
 
     index: BlockIndex with tb = 128; src_blocks (nq, 3, QB) sorted source,
@@ -287,6 +313,10 @@ def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
     lane_mask: optional (P, ceil(B/32)) int32 bit words (lanes whose bit
     is 0 skip the pair); slot/tid_table/max_per_query: slot-local id mode
     (all three together, from ``make_pair_list_slotted``).
+    ``per_lane``: every lane has nq query blocks of its own, stacked in
+    ``src_blocks`` (B * nq, 3, QB) and answered at that lane's pose only
+    (K1's per-lane mode); qid, covered, tid_table and a lane mask (one
+    word per pair, bit 0) run over the B * nq blocks.
 
     Returns (sq_dists ascending, idx into the sorted target, -1 where
     missing); rows K..KP-1 are BIG / -1.  ``layout`` "nk" -> (B, nq*QB,
@@ -297,6 +327,7 @@ def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
     src_blocks = src_blocks.to(torch.float32).contiguous()
     poses = poses.to(torch.float32).contiguous()
     nq, B = src_blocks.shape[0], poses.shape[0]
+    nq_lane = nq // B if per_lane else 0
     slotted = tid_table is not None
     if slotted:
         if slot is None or max_per_query <= 0:
@@ -312,7 +343,7 @@ def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
     keys = block_knn_keys(
         src_blocks, index.blocks, poses, i32(qid), i32(tid), i32(pid),
         None if lane_mask is None else i32(lane_mask), ib, scale, clamp,
-        plain=plain)
+        plain=plain, nq_lane=nq_lane)
 
     missing = keys >= (vmax << ib)
     local = torch.bitwise_and(keys, imask)
@@ -332,6 +363,11 @@ def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
         cov = covered.reshape(nq, 1, 1, 1)
         val = torch.where(cov, val, BIG)
         idx = torch.where(cov, idx, -1)
+    if per_lane:
+        # (B * nq, 1, KP, QB) -> (nq, B, KP, QB): lane b's blocks in column b
+        nq = nq_lane
+        val = val.reshape(B, nq, KP, QB).transpose(0, 1)
+        idx = idx.reshape(B, nq, KP, QB).transpose(0, 1)
     if layout == "kn":
         return (val.permute(1, 2, 0, 3).reshape(B, KP, nq * QB),
                 idx.permute(1, 2, 0, 3).reshape(B, KP, nq * QB))
@@ -362,19 +398,22 @@ def _interval_qbox(slo, shi, Rs, ts):
 
 def exact_qbox(src_q, Rs, ts):
     """Per-lane, per-query-block bboxes of the TRANSFORMED points.
-    src_q (nq, QB, 3); Rs (B, 3, 3); ts (B, 3) -> (qlo, qhi) (B, nq, 3)."""
-    pw = torch.einsum("qpj,bij->bqpi", src_q.to(torch.float32),
-                      Rs.to(torch.float32)) \
+    src_q (nq, QB, 3), or (B, nq, QB, 3) where each lane has a source of
+    its own; Rs (B, 3, 3); ts (B, 3) -> (qlo, qhi) (B, nq, 3)."""
+    spec = "bqpj,bij->bqpi" if src_q.ndim == 4 else "qpj,bij->bqpi"
+    pw = torch.einsum(spec, src_q.to(torch.float32), Rs.to(torch.float32)) \
         + ts.to(torch.float32)[:, None, None, :]
     return torch.amin(pw, dim=2), torch.amax(pw, dim=2)
 
 
 def super_candidates(slo, shi, Rs, ts, mindex, r_cull, num_supers: int,
-                     active=None, qbox=None):
+                     active=None, qbox=None, lanes: int = 0):
     """Per-query-block nearest relevant super-blocks (level-1 cull).
     Returns (sup_sel (nq, S) int64, sup_ok (nq, S) bool, sup_overflow ()
     = number of query blocks with more than S relevant supers).  Equal
-    scores rank lowest super index first, as ``jax.lax.top_k`` does."""
+    scores rank lowest super index first, as ``jax.lax.top_k`` does.
+    ``lanes``: the nq blocks are that many lanes' own, in order, and
+    sup_overflow is counted per lane, (lanes,)."""
     qlo, qhi = qbox if qbox is not None else _interval_qbox(slo, shi, Rs, ts)
     gap = torch.clamp(torch.maximum(qlo[:, :, None, :] - mindex.sup_hi,
                                     mindex.sup_lo - qhi[:, :, None, :]),
@@ -392,6 +431,9 @@ def super_candidates(slo, shi, Rs, ts, mindex, r_cull, num_supers: int,
     sorted_score, order = torch.sort(score, dim=1, stable=True)
     sup_ok = torch.isfinite(sorted_score[:, :S])
     sup_sel = torch.where(sup_ok, order[:, :S], 0)
+    if lanes:
+        return sup_sel, sup_ok, torch.sum(
+            (n_rel > S).reshape(lanes, -1).to(torch.int32), dim=1)
     return sup_sel, sup_ok, torch.sum((n_rel > S).to(torch.int32))
 
 
@@ -458,32 +500,28 @@ def make_pair_list(rel, num_pairs: int):
 
 
 def make_pair_list_slotted(rel, num_pairs: int, max_per_query: int,
-                           block_ids=None, nbt=None):
+                           block_ids=None, nbt=None, lanes: int = 0):
     """Slotted pair list for the slot-local (map-scale) id mode.
 
     rel (nq, C) bool over candidate columns; block_ids (nq, C) maps columns
     to global target blocks (identity when None); nbt the global block
     count.  Returns (qid, tid, slot, col, tid_table, overflow,
     run_overflow) as the JAX function does; pairs beyond ``max_per_query``
-    in a run are dropped and counted in run_overflow."""
+    in a run are dropped and counted in run_overflow.
+
+    ``lanes``: the nq query blocks are that many lanes' own, in order.
+    Each lane's pairs are then compacted into a capacity of its own,
+    ``num_pairs``, so that no lane's pairs can push out another's, and the
+    lanes' lists are one list of lanes * num_pairs pairs sorted by qid
+    (padding last); overflow and run_overflow are per lane, (lanes,)."""
     nq, C = rel.shape
-    dev = rel.device
     if nbt is None:
         nbt = C
     G = max_per_query
+    if lanes:
+        return _pair_list_lanes(rel, num_pairs, G, block_ids, nbt, lanes)
     total = torch.sum(rel.to(torch.int64))
-    iota = torch.arange(C, device=dev).expand(nq, C)
-    cols = torch.sort(torch.where(rel, iota, C), dim=1,
-                      stable=True).values[:, :G]
-    if cols.shape[1] < G:
-        cols = torch.cat([cols, torch.full((nq, G - cols.shape[1]), C,
-                                           dtype=cols.dtype, device=dev)],
-                         dim=1)
-    valid = cols < C
-    cols_c = torch.where(valid, cols, 0)
-    tidm = cols_c if block_ids is None else torch.gather(
-        block_ids.long(), 1, cols_c)
-    tbl = torch.where(valid, tidm, 0)
+    cols_c, valid, tidm, tbl = _slot_columns(rel, G, block_ids)
     kept = torch.sum(valid.to(torch.int64))
     run_overflow = total - kept
 
@@ -496,6 +534,59 @@ def make_pair_list_slotted(rel, num_pairs: int, max_per_query: int,
     tid = torch.where(is_pad, nbt, tidm.reshape(-1)[keys_c]).to(torch.int32)
     overflow = torch.clamp(kept - num_pairs, min=0)
     return qid, tid, slot, col, tbl.to(torch.int32), overflow, run_overflow
+
+
+def _slot_columns(rel, G: int, block_ids):
+    """Each query block's first ``G`` relevant columns: (cols_c, valid,
+    tidm, tbl), the columns (0 where none), which are real, their target
+    blocks and the slot table (0 where none)."""
+    nq, C = rel.shape
+    iota = torch.arange(C, device=rel.device).expand(nq, C)
+    cols = torch.sort(torch.where(rel, iota, C), dim=1,
+                      stable=True).values[:, :G]
+    if cols.shape[1] < G:
+        cols = torch.cat([cols, torch.full((nq, G - cols.shape[1]), C,
+                                           dtype=cols.dtype,
+                                           device=rel.device)], dim=1)
+    valid = cols < C
+    cols_c = torch.where(valid, cols, 0)
+    tidm = cols_c if block_ids is None else torch.gather(
+        block_ids.long(), 1, cols_c)
+    return cols_c, valid, tidm, torch.where(valid, tidm, 0)
+
+
+def _pair_list_lanes(rel, num_pairs: int, G: int, block_ids, nbt: int,
+                     lanes: int):
+    """``make_pair_list_slotted`` over ``lanes`` lanes' query blocks, each
+    lane's pairs in a capacity of its own (see there)."""
+    nq, _ = rel.shape
+    dev = rel.device
+    cols_c, valid, tidm, tbl = _slot_columns(rel, G, block_ids)
+    total = torch.sum(rel.reshape(lanes, -1).to(torch.int64), dim=1)
+    kept = torch.sum(valid.reshape(lanes, -1).to(torch.int64), dim=1)
+    # per lane: the flat (block, slot) indices of its pairs, compacted
+    n = (nq // lanes) * G
+    flat = torch.arange(n, device=dev)
+    keys = torch.sort(torch.where(valid.reshape(lanes, n), flat, n), dim=1,
+                      stable=True).values
+    if num_pairs > n:
+        keys = torch.cat([keys, torch.full((lanes, num_pairs - n), n,
+                                           dtype=keys.dtype, device=dev)],
+                         dim=1)
+    keys = keys[:, :num_pairs]
+    is_pad = keys >= n
+    at = torch.arange(lanes, device=dev)[:, None] * n \
+        + torch.clamp(keys, max=n - 1)           # into the lanes' flat grid
+    qid = torch.where(is_pad, nq, at // G)
+    # one list sorted by qid: the lanes' pairs in lane order, padding last
+    order = torch.sort(qid.reshape(-1), stable=True).indices
+    at, is_pad = at.reshape(-1)[order], is_pad.reshape(-1)[order]
+    qid = qid.reshape(-1)[order].to(torch.int32)
+    slot = torch.where(is_pad, 0, at % G).to(torch.int32)
+    col = torch.where(is_pad, 0, cols_c.reshape(-1)[at]).to(torch.int32)
+    tid = torch.where(is_pad, nbt, tidm.reshape(-1)[at]).to(torch.int32)
+    overflow = torch.clamp(kept - num_pairs, min=0)
+    return qid, tid, slot, col, tbl.to(torch.int32), overflow, total - kept
 
 
 def pack_lane_mask(rel_lanes, qid, tid):

@@ -111,7 +111,8 @@ def batched_tail_system(source_xyz, target_xyz, Rs, ts, sq_d5, idx_kn,
                         weight_slope: float = 0.9) -> GNSystem:
     """Fused correspondence tail + GN assembly for all lanes.
 
-    source_xyz (N, 3); target_xyz (M, 3); Rs (B, 3, 3); ts (B, 3);
+    source_xyz (N, 3), or (B, N, 3) where each lane registers a source of
+    its own; target_xyz (M, 3); Rs (B, 3, 3); ts (B, 3);
     sq_d5 (B, N) squared k-th neighbour distance (the radius gate);
     idx_kn (B, k, N) neighbour indices, -1 where missing.  Returns a
     GNSystem with leading (B,) dims.  Its two modules are marked
@@ -199,8 +200,10 @@ def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,
     """Residuals, robust weights and the GN rows at (Rs, ts) against the
     fitted planes, reduced to H and g."""
     dt = source_xyz.dtype
-    N = source_xyz.shape[0]
-    p_w = torch.einsum('nj,bij->bni', source_xyz, Rs) + ts[:, None, :]
+    N = source_xyz.shape[-2]
+    per_lane = source_xyz.ndim == 3
+    p_w = torch.einsum('bnj,bij->bni' if per_lane else 'nj,bij->bni',
+                       source_xyz, Rs) + ts[:, None, :]
     pwx, pwy, pwz = p_w[..., 0], p_w[..., 1], p_w[..., 2]
 
     residual = pwx * nox + pwy * noy + pwz * noz + d_off
@@ -226,10 +229,12 @@ def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,
         + noz * R[:, 2, 1, None]
     nRz = nox * R[:, 0, 2, None] + noy * R[:, 1, 2, None] \
         + noz * R[:, 2, 2, None]
-    px, py, pz = source_xyz[:, 0], source_xyz[:, 1], source_xyz[:, 2]
-    J0 = py[None] * nRz - pz[None] * nRy
-    J1 = pz[None] * nRx - px[None] * nRz
-    J2 = px[None] * nRy - py[None] * nRx
+    px, py, pz = source_xyz[..., 0], source_xyz[..., 1], source_xyz[..., 2]
+    if not per_lane:
+        px, py, pz = px[None], py[None], pz[None]
+    J0 = py * nRz - pz * nRy
+    J1 = pz * nRx - px * nRz
+    J2 = px * nRy - py * nRx
     Js = torch.stack([J0, J1, J2, nRx, nRy, nRz], dim=1)   # (B, 6, N)
     Js = Js * row_scale[:, None, :]
     b = -(s * residual)

@@ -8,8 +8,13 @@ that split a profile of the loops by the program's own modules.
   t0_ns, t1_ns, args]`` to the recorder (``parent``: the index of the
   enclosing span, -1 at the top).  Otherwise it costs one flag check: no
   device op, no device allocation, no host read.
-* ``calls(name)`` makes each call of a function such a span, with the
-  call's sequence number (``odometry.call`` on ``run_odometry_map``).
+* ``calls(name, **derived)`` makes each call of a function such a span,
+  with the call's sequence number and args derived from the call's
+  arguments (``odometry.call`` on ``run_odometry_map``;
+  ``odometry.fleet_call`` on ``run_odometry_fleet``, with ``sensors``).
+* ``FLEET`` counts the fleet's ticks from what the host reads anyway:
+  ``run_odometry_fleet`` calls, lanes, step replays, the lanes'
+  iterations and the lanes that aborted or overflowed.
 * ``replay(graph, **args)`` replays a captured graph under a
   ``graphs.replay`` span; inside ``record()`` two CUDA events of the
   recorder's pool bracket it on the replay's stream.
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import functools
 import itertools
 import time
@@ -94,18 +100,42 @@ def span(name: str, **args):
     return _Span(name, args)
 
 
-def calls(name: str):
+def calls(name: str, **derived):
     """Make each call of the decorated function a span ``name`` whose
-    ``call`` arg is the call's sequence number, from 0."""
+    ``call`` arg is the call's sequence number, from 0, and each arg of
+    ``derived`` the value its function gives of the call's arguments."""
     def wrap(fn):
         seq = itertools.count()
 
         @functools.wraps(fn)
         def spanned(*args, **kwargs):
-            with span(name, call=next(seq)):
+            extra = {k: f(*args, **kwargs) for k, f in derived.items()}
+            with span(name, call=next(seq), **extra):
                 return fn(*args, **kwargs)
         return spanned
     return wrap
+
+
+@dataclasses.dataclass
+class FleetCounters:
+    """A fleet's ticks (``run_odometry_fleet``), counted on the host from
+    the loop's own reads of its step flag: no read of their own."""
+    calls: int = 0
+    lanes: int = 0           # sensors, summed over calls
+    steps: int = 0           # step replays
+    lane_steps: int = 0      # the lanes' ICP iterations
+    failed: int = 0          # lanes aborted or over their pair list
+
+    def add(self, lanes: int, steps: int, lane_steps: int,
+            failed: int) -> None:
+        self.calls += 1
+        self.lanes += lanes
+        self.steps += steps
+        self.lane_steps += lane_steps
+        self.failed += failed
+
+
+FLEET = FleetCounters()
 
 
 def replay(graph, **args) -> None:

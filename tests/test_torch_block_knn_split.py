@@ -42,8 +42,10 @@ def _split_parts(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
     return torch.stack(parts, dim=1)
 
 
-def _split_merge_keys(*args, plain=False, nsplit=1):
-    """K1's structure in plain torch: split, top-5 per split, merge."""
+def _split_merge_keys(*args, plain=False, nsplit=1, nq_lane=0):
+    """K1's structure in plain torch: split, top-5 per split, merge (the
+    lanes' own mode, ``nq_lane``, is not split here)."""
+    assert nq_lane == 0
     _split_merge_keys.calls += 1
     return tk.merge_partial_keys(_split_parts(*args, nsplit))
 
