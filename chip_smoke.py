@@ -33,14 +33,24 @@ sm_90a), then runs on the card:
      (``pcg6_check`` B1_map_pass: the same branch per system, x
      bit-equal where Cholesky answers, the gates of ``pcg6_gates`` where
      PCG does, times and bound, and the share of systems that took
-     PCG); the
+     PCG); the kernel plane_fit (``soa_tail._plane_fit``) launched once
+     per ICP iteration of the 128 frames, each launch from a replay, and
+     against its plain twin on the first eager iteration as launched
+     (``plane_fit_check`` B1_map_first_iteration: every output
+     bit-equal, times and bound); the 128 frames again eagerly with every
+     plane fit through the twin (``odometry_plane_fit_vs_twin``: equal
+     iterations, poses within 1e-6 m and 1e-6 rad, bit-equality
+     reported); the fleet's first tick (8 robots at frames 0, 16, ...,
+     112), graphed with one plane_fit launch per step and eagerly
+     (``plane_fit_check`` B8_fleet_first_tick); the
      8-frame profile window graphed (under 50 kernel-launch calls per
      ICP iteration, the rest by ``cudaGraphLaunch``) and eager;
   3. a B=128 Monte-Carlo batch in MapIndex mode with full telemetry,
      graphed, gated on convergence, zero overflow, mean errors < 5 cm /
      0.5 deg, and rerun eagerly (per-lane iterations equal, poses within
      1e-5), pcg6 against its plain twin on that rerun's systems as
-     launched (``pcg6_check`` B128_mc_map);
+     launched (``pcg6_check`` B128_mc_map), plane_fit on its first
+     iteration (``plane_fit_check`` B128_mc_frame);
   4. a B=128 BlockIndex-mode batch on a 16,384-point neighbourhood of
      frame 0, graphed, gated on convergence and zero overflow, rerun
      eagerly and with the plain K1 forced (each: per-lane iterations
@@ -78,7 +88,8 @@ sm_90a), then runs on the card:
      bit-equality reported); one Ours, XICP, XICP-EQ and O3D run each
      under the profiler (the host's launch calls per ICP iteration
      printed; under one for XICP-EQ and O3D);
-  7. the ``kernels`` line: K1, K2, K3 and pcg6 with their launches on each
+  7. the ``kernels`` line: K1, K2, K3, pcg6 and plane_fit with their
+     launches on each
      path (K2's including (8b) and (9c), and those of them from graph
      replays; K1's (10a) and (10b)), times, bounds and library times;
      printed after phase 10;
@@ -231,7 +242,8 @@ def wall(fn):
 
 # names of the port's hand-written CUDA kernels (csrc/)
 PORT_KERNELS = ("block_knn_keys_kernel", "block_knn_merge_kernel",
-                "knn_candidates_kernel", "group_min_kernel", "pcg6_kernel")
+                "knn_candidates_kernel", "group_min_kernel", "pcg6_kernel",
+                "plane_fit_kernel")
 
 
 # host calls of the CUDA runtime that launch work: kernels one by one, or
@@ -640,14 +652,16 @@ def pcg6_x_tolerance(H):
     grows with the condition number, 16 eps kappa(H) (kappa over the
     eigenvalues' magnitudes above 1e-6 of the largest, in float64); 256
     eps kappa where H is indefinite, since CG's steps then divide by
-    curvatures p.Hp that can pass near zero; within PCG6_X_TOL."""
+    curvatures p.Hp that can pass near zero; within PCG6_X_TOL.  A zero H
+    (a lane with no valid pair, whose answer is 0) takes kappa 1."""
     w = torch.linalg.eigvalsh(torch.nan_to_num(H.double()))
     indefinite = (w < 0).any(-1)
     w = w.abs()
     top = w.amax(-1, keepdim=True)
     low = torch.where(w > 1e-6 * top, w, top).amin(-1)
+    kappa = torch.where(low > 0, top[..., 0] / low, 1.0)
     factor = torch.where(indefinite, 256.0, 16.0)
-    return torch.clamp(factor * EPS32 * top[..., 0] / low, *PCG6_X_TOL)
+    return torch.clamp(factor * EPS32 * kappa, *PCG6_X_TOL)
 
 
 def pcg6_gates(H, g, out, twin, thresholds):
@@ -686,7 +700,10 @@ def pcg6_gates(H, g, out, twin, thresholds):
         drift = PCG6_RESIDUAL_DRIFT * EPS32 * (
             torch.linalg.norm(gd, dim=-1) + torch.linalg.matrix_norm(
                 Hd, ord=2) * torch.linalg.norm(xd, dim=-1))
-        r_over = (true - res[fin].double()).abs() / drift
+        off = (true - res[fin].double()).abs()
+        # a zero system (g = 0, H x = 0) drifts by nothing: only 0 passes
+        r_over = torch.where(drift > 0, off / drift,
+                             torch.where(off > 0, float("inf"), 0.0))
     P = info.P_preconditioner.reshape(-1, 36)
     P_t = info_t.P_preconditioner.reshape(-1, 36)
     p_rel = ((P - P_t).abs().amax(-1)
@@ -803,6 +820,147 @@ def stacked_solves(calls):
     return (torch.cat([c[0] for c in calls]), torch.cat([c[1] for c in calls]),
             DegeneracyAnalysis(*[torch.cat(f) for f in zip(
                 *[c[2] for c in calls])]))
+
+
+# the outputs of plane_fit and of its plain twin, in their order
+PLANE_FIT_OUTPUTS = ("nox", "noy", "noz", "d_off", "fit_ok", "plane_ok")
+
+
+def plane_fit_bound(B, k, N):
+    """Least time for plane_fit's work on B lanes of N points with k
+    neighbours each (dcreg_tpu_torch/csrc/plane_fit.cu's note): the larger
+    of its bytes (16 k + 18 a point) over the memory rate and its float
+    operations (25 k + 330 a point) over the f32 rate."""
+    points = B * N
+    nbytes = (16 * k + 18) * points
+    ops = (25 * k + 330) * points
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops}
+
+
+def plane_fit_gates(out, twin):
+    """plane_fit's answer ``out`` (nox, noy, noz, d_off, fit_ok, plane_ok)
+    against its plain twin's ``twin`` on the same neighbourhoods: a row of
+    measures, with ``failed``, the outputs that differ.  Gates: fit_ok and
+    plane_ok equal; nox, noy, noz and d_off bit-equal (the same bits, so a
+    zero's sign too), NaN where the twin's are.  No tolerance: the kernel
+    repeats the twin's float32 operations one for one in the twin's order
+    on the card (csrc/plane_fit.cu's note), so any difference is a fault.
+    Each point that differs is counted per output (``differ``), and the
+    first 8 of each printed with both values (``shown``)."""
+    row = {"points": int(twin[0].numel()),
+           "fit_ok": int(twin[4].sum()), "plane_ok": int(twin[5].sum()),
+           "differ": {}, "shown": {}, "failed": []}
+    for name, a, b in zip(PLANE_FIT_OUTPUTS, out, twin):
+        a, b = a.reshape(-1), b.reshape(-1)
+        if a.dtype.is_floating_point:
+            nan_a, nan_b = a.isnan(), b.isnan()
+            bad = (nan_a != nan_b) | (~nan_a & (
+                a.view(torch.int32) != b.view(torch.int32)))
+        else:
+            bad = a != b
+        n = int(bad.sum())
+        row["differ"][name] = n
+        if n:
+            row["failed"].append(name)
+            at = bad.nonzero()[:8, 0].tolist()
+            row["shown"][name] = [[i, float(a[i]), float(b[i])] for i in at]
+    return row
+
+
+def check_plane_fit(name, calls, launches):
+    """plane_fit against its plain twin on the card on each of ``calls``
+    ((target_xyz, idx_kn, params) as launched): ``plane_fit_gates`` over
+    all of them, the times and bound of the first, and ``launches``, the
+    kernel's launches on the path the calls came from."""
+    from dcreg_tpu_torch.ops import soa_tail
+    target, idx, params = calls[0]
+    B, k, N = idx.shape
+    row = {"phase": "plane_fit_check", "shape": name, "calls": len(calls),
+           "batch": B, "k": k, "points_per_lane": N,
+           "idx_contiguous": idx.is_contiguous()}
+    rows = [plane_fit_gates(soa_tail._plane_fit(t, i, p),
+                            soa_tail._plane_fit_plain(t, i, p))
+            for t, i, p in calls]
+    for f in ("points", "fit_ok", "plane_ok"):
+        row[f] = sum(r[f] for r in rows)
+    row["differ"] = {o: sum(r["differ"][o] for r in rows)
+                     for o in PLANE_FIT_OUTPUTS}
+    row["shown"] = [r["shown"] for r in rows if r["shown"]][:4]
+    row["failed"] = sorted({f for r in rows for f in r["failed"]})
+    row["ms"] = time_ms(lambda: soa_tail._plane_fit(target, idx, params),
+                        200)
+    row["plain_ms"] = time_ms(
+        lambda: soa_tail._plane_fit_plain(target, idx, params), 20)
+    row.update(plane_fit_bound(B, k, N))
+    row["launches"] = launches
+    emit(row)
+    if row["failed"]:
+        raise RuntimeError(f"plane_fit {name} differs from the plain twin: "
+                           f"{row}")
+    return row
+
+
+def same_layout_copy(t):
+    """A copy of ``t`` over a copy of its whole storage, with its shape,
+    strides and offset: the kernel reads it as it read ``t``."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage().clone(), t.storage_offset(), t.shape, t.stride())
+
+
+def recording_planes(run, calls):
+    """``run(graph)`` whose first eager call (graph=False) appends the
+    operands of its first plane_fit launch, (target_xyz, idx_kn in its
+    layout, params), to ``calls``; the target, the map, is not copied."""
+    from dcreg_tpu_torch.ops import soa_tail
+
+    def wrapped(graph=None):
+        if graph is not False or calls:
+            return run(graph)
+        launch = soa_tail._launch_cuda
+
+        def spy(target_xyz, idx_kn, params):
+            if not calls:
+                calls.append((target_xyz, same_layout_copy(idx_kn), params))
+            return launch(target_xyz, idx_kn, params)
+
+        soa_tail._launch_cuda = spy
+        try:
+            return run(graph)
+        finally:
+            soa_tail._launch_cuda = launch
+
+    return wrapped
+
+
+def through_the_twin(fn):
+    """``fn()`` with every plane fit on the card run by the plain twin."""
+    from dcreg_tpu_torch.ops import soa_tail
+    launch = soa_tail._launch_cuda
+    soa_tail._launch_cuda = soa_tail._plane_fit_plain
+    try:
+        return fn()
+    finally:
+        soa_tail._launch_cuda = launch
+
+
+def plane_fit_entry(rows, launches):
+    """plane_fit's entry of the ``kernels`` line: the times of the map
+    loop's B = 1 row, and each row's."""
+    b1 = rows["B1_map_first_iteration"]
+    return {"name": "plane_fit _plane_fit", "route": "cuda",
+            "source": "dcreg_tpu_torch/csrc/plane_fit.cu", "replaces": None,
+            "launches": int(sum(launches.values())),
+            "launches_by_path": launches,
+            "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": None,
+            "shapes": {k: {f: v[f] for f in (
+                "batch", "points", "ms", "plain_ms", "bound_ms", "bound_by",
+                "launches")} for k, v in rows.items()}}
 
 
 # --------------------------------------------------------------------------
@@ -2283,9 +2441,11 @@ def run_corridor(device: str = "cuda"):
     degenerate), recorded from an eager pass: each as launched (B = 1)
     and the first 128 stacked; then two DCReg and two ME-TSVD frames
     under the profiler.  Returns K1's launches in ``main``, the K1
-    check's row, the pcg6 rows and pcg6's launches in ``main``."""
+    check's row, the pcg6 rows, pcg6's launches in ``main`` and
+    plane_fit's launches in ``main``."""
     from dcreg_tpu_torch.io.tum import load_tum
     from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import soa_tail
     from dcreg_tpu_torch.ops import solvers as tsol
     from dcreg_tpu_torch.scripts import run_corridor_experiment as rce
     t_start = time.perf_counter()
@@ -2310,10 +2470,12 @@ def run_corridor(device: str = "cuda"):
     out_dir = rce.default_out_dir()
     tk.block_knn_keys.launches = 0
     tsol.solve_pcg_fast.launches = 0
+    soa_tail._plane_fit.launches = 0
     rc, seconds = wall(lambda: rce.main(out_dir, device, inputs=inp,
                                         after_method=after_method))
     launches = tk.block_knn_keys.launches
     pcg6_launches = tsol.solve_pcg_fast.launches
+    plane_launches = soa_tail._plane_fit.launches
     with open(os.path.join(out_dir, "corridor_summary.json")) as f:
         summary = json.load(f)
     poses = {m: load_tum(os.path.join(out_dir, f"{m}.tum"))[1]
@@ -2381,7 +2543,7 @@ def run_corridor(device: str = "cuda"):
         prof["kernels_per_icp_iteration"] = prof["kernel_launches"] / trips
         prof["phase10_s"] = time.perf_counter() - t_start
         emit(prof)
-    return launches, k1_row, pcg6_rows, pcg6_launches
+    return launches, k1_row, pcg6_rows, pcg6_launches, plane_launches
 
 
 def run_map_baselines(ctx, device: str = "cuda"):
@@ -2462,7 +2624,9 @@ def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch.models.odometry import (
         estimate_odometry_capacities, prepare_frames, run_odometry_map)
     from dcreg_tpu_torch import graphs
+    from dcreg_tpu_torch.models.odometry import run_odometry_fleet
     from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import soa_tail
     from dcreg_tpu_torch.ops import solvers as tsol
     from dcreg_tpu_torch.ops.block_sparse import (build_block_index,
                                                   build_map_index,
@@ -2563,7 +2727,13 @@ def run(seed: int, device: str = "cuda"):
     check_k1_graph("a_map_B1_slotted_nomask", a_inputs)
 
     params = ICPParams()
-    launches, pcg6_launches = {}, {}
+    launches, pcg6_launches, plane_launches = {}, {}, {}
+    planes = soa_tail._plane_fit
+
+    def reset_counts():
+        tk.block_knn_keys.launches = 0
+        tsol.solve_pcg_fast.launches = 0
+        planes.launches = planes.launches_replayed = 0
 
     # ---- 2. the localization loop, replayed as CUDA graphs ---------------
     def run_odom(n=FRAMES, graph=None, mi=mindex, wt=world_t, shift=None):
@@ -2583,11 +2753,12 @@ def run(seed: int, device: str = "cuda"):
     capture_s = graphs.CACHE.capture_seconds - cap0[1]
     held_mib = [(torch.cuda.memory_allocated() - mem0[0]) / 2 ** 20,
                 (torch.cuda.memory_reserved() - mem0[1]) / 2 ** 20]
-    tk.block_knn_keys.launches = 0
-    tsol.solve_pcg_fast.launches = 0
+    reset_counts()
     res, dt = wall(run_odom)
     launches["odometry"] = tk.block_knn_keys.launches
     pcg6_launches["odometry"] = tsol.solve_pcg_fast.launches
+    plane_launches["odometry"] = planes.launches
+    plane_replayed = planes.launches_replayed
     est = res.poses.cpu().numpy()
     te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
     odom = {"phase": "odometry", "frames": FRAMES, "graphed": True,
@@ -2602,18 +2773,73 @@ def run(seed: int, device: str = "cuda"):
             "converged_frac": float(res.converged.float().mean()),
             "ovf_max": int(res.pair_overflow.max()),
             "k1_launches": launches["odometry"],
-            "k1_launches_per_frame": launches["odometry"] / FRAMES}
+            "k1_launches_per_frame": launches["odometry"] / FRAMES,
+            "plane_fit_launches": plane_launches["odometry"],
+            "plane_fit_launches_replayed": plane_replayed,
+            "icp_iterations": int(res.iterations.sum())}
     emit(odom)
     if not (bool(res.converged.all()) and odom["ovf_max"] == 0
             and te.mean() < 0.05 and te.max() < 0.10):
         raise RuntimeError(f"odometry gates failed: {odom}")
-    map_solves, pcg6_rows = [], {}
-    emit(eager_vs_graphed(recording_solves(
+    # one plane_fit launch per ICP iteration, each from a replay
+    if not (plane_replayed == plane_launches["odometry"]
+            == odom["icp_iterations"]):
+        raise RuntimeError(f"plane_fit launches differ from the loop's "
+                           f"ICP iterations: {odom}")
+    map_solves, map_planes, pcg6_rows, plane_rows = [], [], {}, {}
+    emit(eager_vs_graphed(recording_planes(recording_solves(
         lambda graph: run_odom(EAGER_CHECK_FRAMES, graph), map_solves),
-        "odometry_eager_vs_graphed"))
+        map_planes), "odometry_eager_vs_graphed"))
     emit(stale_cache_check(run_odom, res, world, device))
     # pcg6 on the eager pass's own systems, each as launched (B = 1)
     pcg6_rows["B1_map_pass"] = check_pcg6("B1_map_pass", map_solves)
+    # plane_fit on the eager pass's first ICP iteration, as launched
+    plane_rows["B1_map_first_iteration"] = check_plane_fit(
+        "B1_map_first_iteration", map_planes, plane_launches["odometry"])
+    # the 128 frames again, every plane fit through the plain twin (eager)
+    twin_res, twin_s = wall(lambda: through_the_twin(
+        lambda: run_odom(graph=False)))
+    twin_row = {"phase": "odometry_plane_fit_vs_twin", "frames": FRAMES,
+                "twin_eager_s": twin_s,
+                "same_iterations": bool(torch.equal(res.iterations,
+                                                    twin_res.iterations)),
+                "pose_max_diff_m": float((res.poses[:, :3, 3].double()
+                                          - twin_res.poses[:, :3, 3].double()
+                                          ).norm(dim=-1).max()),
+                "rot_max_diff_rad": float(rotation_diff_rad(
+                    res.poses[:, :3, :3], twin_res.poses[:, :3, :3]).max()),
+                "bit_equal": bit_equal([res.poses, res.iterations],
+                                       [twin_res.poses, twin_res.iterations])}
+    emit(twin_row)
+    if not (twin_row["same_iterations"]
+            and twin_row["pose_max_diff_m"] <= 1e-6
+            and twin_row["rot_max_diff_rad"] <= 1e-6):
+        raise RuntimeError(f"the loop with plane_fit differs from the loop "
+                           f"through its twin: {twin_row}")
+    # the fleet's first tick (8 robots at frames 0, 16, ..., 112): graphed,
+    # then eagerly with plane_fit's first launch recorded (B = 8)
+    known_t = np.stack(known)
+    fleet_args = dict(icp_params=params, num_supers=S, max_per_query=G,
+                      num_pairs=P, initial_cull_radius=R_CULL0,
+                      reuse_margin=REUSE_MARGIN, device=device)
+
+    def fleet_tick(graph=None):
+        return run_odometry_fleet(
+            frames_s[lanes], mindex, world_t, known_t[[f + 1 for f in lanes]],
+            known_t[lanes], graph=graph, **fleet_args)
+
+    fleet_tick()
+    reset_counts()
+    tick = fleet_tick()
+    plane_launches["fleet_tick"] = planes.launches
+    if planes.launches != int(tick.iterations.max()):
+        raise RuntimeError(f"plane_fit launches {planes.launches} differ "
+                           f"from the fleet tick's steps "
+                           f"{tick.iterations.tolist()}")
+    fleet_planes = []
+    recording_planes(fleet_tick, fleet_planes)(False)
+    plane_rows["B8_fleet_first_tick"] = check_plane_fit(
+        "B8_fleet_first_tick", fleet_planes, plane_launches["fleet_tick"])
     for graph in (None, False):
         held = {}
 
@@ -2638,15 +2864,19 @@ def run(seed: int, device: str = "cuda"):
                              device=device, graph=graph)
 
     wall(mc)
-    tk.block_knn_keys.launches = 0
-    tsol.solve_pcg_fast.launches = 0
+    reset_counts()
     out, dt = wall(mc)
     launches["mc_map"] = tk.block_knn_keys.launches
     pcg6_launches["mc_map"] = tsol.solve_pcg_fast.launches
-    mc_solves = []
-    eager = batch_against_eager(out, recording_solves(mc, mc_solves))
+    plane_launches["mc_map"] = planes.launches
+    mc_solves, mc_planes = [], []
+    eager = batch_against_eager(out, recording_planes(
+        recording_solves(mc, mc_solves), mc_planes))
     # pcg6 on the eager rerun's own systems, each as launched (B = 128)
     pcg6_rows["B128_mc_map"] = check_pcg6("B128_mc_map", mc_solves)
+    # plane_fit on the eager rerun's first ICP iteration (B = 128)
+    plane_rows["B128_mc_frame"] = check_plane_fit(
+        "B128_mc_frame", mc_planes, plane_launches["mc_map"])
     last = (out.iterations.long() - 1).clamp(min=0)
     lane = torch.arange(BATCH, device=last.device)
     te = out.log.trans_error[lane, last].cpu().numpy()
@@ -2675,11 +2905,11 @@ def run(seed: int, device: str = "cuda"):
                              graph=graph)
 
     wall(blk_run)
-    tk.block_knn_keys.launches = 0
-    tsol.solve_pcg_fast.launches = 0
+    reset_counts()
     out, dt = wall(blk_run)
     launches["mc_block"] = tk.block_knn_keys.launches
     pcg6_launches["mc_block"] = tsol.solve_pcg_fast.launches
+    plane_launches["mc_block"] = planes.launches
     eager = batch_against_eager(out, blk_run)
     ref = blk_run(plain=True)
     last = (out.iterations.long() - 1).clamp(min=0)
@@ -2709,11 +2939,15 @@ def run(seed: int, device: str = "cuda"):
     if min(pcg6_launches.values()) <= 0:
         raise RuntimeError(f"pcg6 not launched on every path: "
                            f"{pcg6_launches}")
+    if min(plane_launches.values()) <= 0:
+        raise RuntimeError(f"plane_fit not launched on every path: "
+                           f"{plane_launches}")
     a = rows["a_map_B1_slotted_nomask"]
     ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
            "T_pre2": T_pre2, "odom_poses": est.astype(np.float64),
            "mindex": mindex, "world_t": world_t, "caps": (S, G, P),
-           "pcg6": (pcg6_rows, pcg6_launches)}
+           "pcg6": (pcg6_rows, pcg6_launches),
+           "plane_fit": (plane_rows, plane_launches)}
     return ctx, {
         "name": "K1 block_knn_keys", "route": "cuda",
         "source": "dcreg_tpu_torch/csrc/block_knn.cu",
@@ -2733,9 +2967,9 @@ def run(seed: int, device: str = "cuda"):
 def build_kernels():
     """Build every CUDA source at once (one nvcc each, in parallel)."""
     from concurrent.futures import ThreadPoolExecutor
-    from dcreg_tpu_torch.ops import block_knn, knn_kernels, solvers
+    from dcreg_tpu_torch.ops import block_knn, knn_kernels, soa_tail, solvers
     mods = {"block_knn.cu": block_knn, "knn.cu": knn_kernels,
-            "pcg6.cu": solvers}
+            "pcg6.cu": solvers, "plane_fit.cu": soa_tail}
     with ThreadPoolExecutor(len(mods)) as ex:
         futures = {name: ex.submit(m.build_library)
                    for name, m in mods.items()}
@@ -2793,8 +3027,8 @@ def main():
         k2["launches_by_path"][path] = n
         k2["launches_from_replays_by_path"][path] = \
             kn.knn_candidates.launches_replayed - replayed
-    corridor, k1_corridor, pcg6_corridor, pcg6_corridor_launches = \
-        run_corridor()
+    corridor, k1_corridor, pcg6_corridor, pcg6_corridor_launches, \
+        plane_corridor_launches = run_corridor()
     k1["shapes"]["corridor_live_B1_reuse_mask"] = {
         f: k1_corridor[f] for f in k1["shapes"]["a_map_B1_slotted_nomask"]}
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_corridor["max_abs_err"])
@@ -2808,7 +3042,12 @@ def main():
     pcg6_rows, pcg6_launches = ctx["pcg6"]
     pcg6_rows.update(pcg6_corridor)
     pcg6_launches["corridor"] = pcg6_corridor_launches
-    emit({"kernels": [k1, k2, k3, pcg6_entry(pcg6_rows, pcg6_launches)]})
+    plane_rows, plane_launches = ctx["plane_fit"]
+    plane_launches["corridor"] = plane_corridor_launches
+    if plane_corridor_launches <= 0:
+        raise RuntimeError("plane_fit not launched on the corridor")
+    emit({"kernels": [k1, k2, k3, pcg6_entry(pcg6_rows, pcg6_launches),
+                      plane_fit_entry(plane_rows, plane_launches)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,12 +6,24 @@ robust weight and SO(3) right-perturbation GN rows, on component arrays
 shaped (B, N) / (B, k, N) with the point axis minor.  The two reductions
 to H and g are f32 einsums, which stay full f32 because the port keeps
 TF32 off (``dcreg_tpu_torch.utils.precise``).
+
+The plane fit, ``_plane_fit``, is a kernel boundary: a CUDA tensor
+launches the hand-written kernel plane_fit (``csrc/plane_fit.cu``, built
+on first use with nvcc and bound with ctypes; one launch where the plain
+form runs 444 small ops), a CPU tensor takes the plain PyTorch twin
+``_plane_fit_plain``.  The wrapper counts its launches through
+``graphs.note_launch``, so a launch inside a captured CUDA graph counts
+once per replay.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
-from .. import graphs
+from .. import cuda_build, graphs
 from .correspondence import CorrespondenceParams
 from .gauss_newton import GNSystem
 
@@ -124,9 +136,10 @@ def batched_tail_system(source_xyz, target_xyz, Rs, ts, sq_d5, idx_kn,
                           use_weight_derivative, weight_slope)
 
 
-def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
-    """The neighbours' plane fit: (unit normal components nox, noy, noz,
-    offset d_off, fit_ok, plane_ok), each (B, N)."""
+def _plane_fit_plain(target_xyz, idx_kn, params: CorrespondenceParams):
+    """Plain PyTorch twin of plane_fit, the neighbours' plane fit: (unit
+    normal components nox, noy, noz, offset d_off, fit_ok, plane_ok), each
+    (B, N)."""
     dt, dev = target_xyz.dtype, target_xyz.device
     one = torch.ones((), dtype=dt, device=dev)
     k = idx_kn.shape[1]
@@ -192,6 +205,99 @@ def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
           + d_off[:, None])
     plane_ok = torch.amax(pd * pd, dim=1) < params.max_plane_thickness ** 2
     return nox, noy, noz, d_off, fit_ok, plane_ok
+
+
+# ---------------------------------------------------------------------------
+# plane_fit: build, bind, launch
+# ---------------------------------------------------------------------------
+
+CSRC = cuda_build.CSRC / "plane_fit.cu"
+# the kernel's cap on k, its K_MAX: the neighbours live in registers
+K_MAX = 16
+
+
+def build_library() -> dict:
+    """Compile ``csrc/plane_fit.cu`` with the shared nvcc command
+    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
+    Returns {"path", "seconds", "log"}."""
+    return cuda_build.build_library(CSRC, "dcreg_plane_fit", "plane_fit")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(build_library()["path"])
+    fn = lib.dcreg_plane_fit
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, f, f, f, p]
+    fn.restype = i
+    return lib
+
+
+def kernel_operands(target_xyz, idx_kn):
+    """(B, k, N, strides): the kernel's sizes and the element strides of
+    its two operands, target_xyz (M, 3) and idx_kn (B, k, N), in its order.
+    The kernel reads the caller's tensors in place, the loop's view
+    ``idx[:, :k, :N]`` included, so no copy runs.  Raises where a shape
+    does not fit or k is above the kernel's cap."""
+    if target_xyz.ndim != 2 or target_xyz.shape[1] != 3:
+        raise ValueError(f"plane_fit: target_xyz has shape "
+                         f"{tuple(target_xyz.shape)}, expected (M, 3)")
+    if idx_kn.ndim != 3:
+        raise ValueError(f"plane_fit: idx_kn has shape "
+                         f"{tuple(idx_kn.shape)}, expected (B, k, N)")
+    B, k, N = idx_kn.shape
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"plane_fit: k = {k} is outside the kernel's "
+                         f"range 1..{K_MAX}")
+    return B, k, N, [*target_xyz.stride(), *idx_kn.stride()]
+
+
+def _launch_cuda(target_xyz, idx_kn, params: CorrespondenceParams):
+    B, k, N, strides = kernel_operands(target_xyz, idx_kn)
+    for name, t, want in (("target_xyz", target_xyz, torch.float32),
+                          ("idx_kn", idx_kn, torch.int32)):
+        if t.dtype != want:
+            raise TypeError(f"plane_fit: {name} is {t.dtype}, expected "
+                            f"{want}")
+    dev = target_xyz.device
+    if dev.type != "cuda" or idx_kn.device != dev:
+        raise ValueError(f"plane_fit runs on a CUDA device, got "
+                         f"{target_xyz.device} and {idx_kn.device}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    nox, noy, noz, d_off = (torch.empty((B, N), **f32) for _ in range(4))
+    fit_ok, plane_ok = (torch.empty((B, N), dtype=torch.bool, device=dev)
+                        for _ in range(2))
+    # ATen's mean scales its sum by float(outputs) / float(inputs), and its
+    # division by a host scalar multiplies by the float reciprocal
+    mean_factor = float(np.float32(B * N) / np.float32(B * k * N)) \
+        if B * N else 0.0
+    inv_k = float(np.float32(1.0) / np.float32(k))
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _library().dcreg_plane_fit(
+        target_xyz.data_ptr(), idx_kn.data_ptr(), c_strides, len(strides),
+        nox.data_ptr(), noy.data_ptr(), noz.data_ptr(), d_off.data_ptr(),
+        fit_ok.data_ptr(), plane_ok.data_ptr(), B, k, N, mean_factor, inv_k,
+        params.max_plane_thickness ** 2, stream)
+    if rc != 0:
+        raise RuntimeError(f"plane_fit kernel launch failed: cudaError {rc}")
+    graphs.note_launch(_plane_fit)
+    return nox, noy, noz, d_off, fit_ok, plane_ok
+
+
+def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
+    """The neighbours' plane fit (the boundary of plane_fit): CPU tensors
+    take the plain twin ``_plane_fit_plain``; CUDA tensors launch the
+    kernel, float32 target and int32 ids as the loop hands them (or
+    raise).  Returns (nox, noy, noz, d_off, fit_ok, plane_ok), each
+    (B, N)."""
+    if target_xyz.device.type == "cpu":
+        return _plane_fit_plain(target_xyz, idx_kn, params)
+    return _launch_cuda(target_xyz, idx_kn, params)
+
+
+_plane_fit.launches = 0
+_plane_fit.launches_replayed = 0  # those of them made by graph replays
 
 
 def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,

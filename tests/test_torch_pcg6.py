@@ -267,6 +267,24 @@ def test_gates_catch_each_fault(fault):
     assert row["pcg_converged"] > 0 and row["systems"] > row["pcg_systems"]
 
 
+@pytest.mark.parametrize("fault", ("none", "pcg_x", "residual"))
+def test_gates_hold_a_zero_system(fault):
+    # a batch lane that is done searches nothing: H = 0 and g = 0, which
+    # Cholesky refuses, so PCG answers 0 at once with residual 0
+    H, g = mixed_battery(16, seed=4)
+    H[3], g[3] = 0.0, 0.0
+    a = analyze(H, SCHUR, TH, fast=True)
+    twin = solvers.solve_pcg_fast_plain(H, g, a, TH)
+    x, info = solvers.solve_pcg_fast_plain(H, g, a, TH)
+    assert int(info.pcg_iterations[3]) >= 1 and not x[3].any()
+    if fault == "pcg_x":
+        x[3, 0] = 1e-3
+    elif fault == "residual":
+        info.pcg_residual[3] = 1e-3
+    row = cs.pcg6_gates(H, g, (x, info), twin, TH)
+    assert row["failed"] == ([] if fault == "none" else [fault]), row
+
+
 # --------------------------------------------------------------------------
 # the card: the kernel against the twin
 # --------------------------------------------------------------------------
