@@ -53,8 +53,8 @@ sm_90a), then runs on the card:
      iteration (``plane_fit_check`` B128_mc_frame);
   4. a B=128 BlockIndex-mode batch on a 16,384-point neighbourhood of
      frame 0, graphed, gated on convergence and zero overflow, rerun
-     eagerly and with the plain K1 forced (each: per-lane iterations
-     equal, poses within 1e-5);
+     eagerly and eagerly on K1's twin route (``K1.through_the_twin``;
+     each: per-lane iterations equal, poses within 1e-5);
   5. K2 and K3 against their plain twins, bit for bit, at (d) the 5-NN
      self query of the 8,192-point cylinder, (e) its nn1, (f) 65,536
      points with 30% of the targets invalid, where ``knn_grouped`` must
@@ -252,6 +252,29 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaGraphLaunch")
 
 
+class Tally:
+    """The launches each of the port's kernels (``cuda_build.Kernel``)
+    made since the tally was taken: deltas of their counters."""
+
+    def __init__(self):
+        from dcreg_tpu_torch.cuda_build import kernels
+        self.at = {k: (k.launches, k.launches_replayed,
+                       dict(k.launches_by_kk)) for k in kernels()}
+
+    def launches(self, kernel) -> int:
+        return kernel.launches - self.at[kernel][0]
+
+    def replayed(self, kernel) -> int:
+        """Those of them made by graph replays."""
+        return kernel.launches_replayed - self.at[kernel][1]
+
+    def by_kk(self, kernel) -> dict:
+        at = self.at[kernel][2]
+        return {kk: n - at.get(kk, 0)
+                for kk, n in sorted(kernel.launches_by_kk.items())
+                if n > at.get(kk, 0)}
+
+
 def profile_window(name, fn, top=8):
     """Where the time of one call of ``fn`` goes: wall time, device-busy
     share (sum of kernel times over wall time), the port's own kernels,
@@ -268,14 +291,11 @@ def profile_window(name, fn, top=8):
     from dcreg_tpu_torch.ops import knn_kernels as kn
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    k1_before = tk.block_knn_keys.launches
-    k2_before = dict(kn.knn_candidates.launches_by_kk)
+    tally = Tally()
     with profile(activities=acts) as prof:
         _, seconds = wall(fn)
-    k1_calls = tk.block_knn_keys.launches - k1_before
-    k2_calls = {kk: n - k2_before.get(kk, 0)
-                for kk, n in sorted(kn.knn_candidates.launches_by_kk.items())
-                if n > k2_before.get(kk, 0)}
+    k1_calls = tally.launches(tk.K1)
+    k2_calls = tally.by_kk(kn.K2)
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -556,18 +576,16 @@ def check_k1(name, a):
                            "clamp")]
     nq, B = a["src_blocks"].shape[0], a["poses"].shape[0]
     mode = {"nq_lane": a.get("nq_lane", 0)}
-    tk.block_knn_keys.last_grid = None
     keys = tk.block_knn_keys(*args, **mode)
-    grid = tk.block_knn_keys.last_grid or {"nsplit": None, "ctas": None}
-    ref = tk.block_knn_keys(*args, plain=True, **mode)
+    grid = tk.K1.last_grid or {"nsplit": None, "ctas": None}
+    ref = tk.block_knn_keys_plain(*args, **mode)
     mismatches = int((keys != ref).sum())
     max_abs_err = int((keys.long() - ref.long()).abs().max())
     if mismatches:
         raise RuntimeError(f"K1 {name}: {mismatches} keys differ from the "
                            f"plain version (max |diff| {max_abs_err})")
     ms = time_ms(lambda: tk.block_knn_keys(*args, **mode), 20)
-    plain_ms = time_ms(lambda: tk.block_knn_keys(*args, plain=True, **mode),
-                       2)
+    plain_ms = time_ms(lambda: tk.block_knn_keys_plain(*args, **mode), 2)
     qid = a["qid"].long()
     runs = torch.bincount(qid[qid < nq], minlength=nq)
     row = {"phase": "k1_check", "shape": name, "B": int(B), "nq": int(nq),
@@ -596,11 +614,11 @@ def check_k1_graph(name, a):
         "k1": lambda: state.put("keys", tk.block_knn_keys(*args))},
         args[0].device)
     state.keys.fill_(0)
-    before = tk.block_knn_keys.launches
+    tally = Tally()
     g("k1")
     torch.cuda.synchronize()
-    counted = tk.block_knn_keys.launches - before
-    ref = tk.block_knn_keys(*args, plain=True)
+    counted = tally.launches(tk.K1)
+    ref = tk.block_knn_keys_plain(*args)
     row = {"phase": "k1_graph_check", "shape": name,
            "keys": int(ref.numel()),
            "mismatches": int((state.keys != ref).sum()),
@@ -732,94 +750,31 @@ def pcg6_gates(H, g, out, twin, thresholds):
     return row
 
 
-def check_pcg6(name, calls, timed=0):
-    """pcg6 against its plain twin on the card on each of ``calls``
-    ((H, g, analysis) as launched): ``pcg6_gates`` over all of them, at
-    most PCG6_ITERATIONS_DIFFER_SHARE of their PCG systems stopping on
-    another trip than the twin's, and the times and bound of call
-    ``timed``."""
-    from dcreg_tpu_torch.ops import solvers
-    from dcreg_tpu_torch.ops.degeneracy import DegeneracyThresholds
-    th = DegeneracyThresholds()
-    row = {"phase": "pcg6_check", "shape": name, "calls": len(calls),
-           "batch": list(calls[timed][0].shape[:-2])}
-    rows = [pcg6_gates(H, g, solvers.solve_pcg_fast(H, g, a, th),
-                       solvers.solve_pcg_fast_plain(H, g, a, th), th)
-            for H, g, a in calls]
-    for k in ("systems", "pcg_systems", "pcg_converged", "pcg_at_cap",
-              "pcg_iterations_differ"):
-        row[k] = sum(r[k] for r in rows)
-    for k in ("pcg_max_rel", "x_over_tolerance", "residual_over_drift",
-              "P_max_rel"):
-        row[k] = max(r[k] for r in rows)
-    row["failed"] = sorted({f for r in rows for f in r["failed"]})
+def pcg6_overall(row):
+    """pcg6's gates over all the calls of a check: at most
+    PCG6_ITERATIONS_DIFFER_SHARE of their PCG systems stop on another trip
+    than the twin's.  Adds the share of systems that took PCG."""
     if row["pcg_iterations_differ"] > \
             PCG6_ITERATIONS_DIFFER_SHARE * row["pcg_systems"]:
         row["failed"].append("iterations_differ")
     row["pcg_share"] = row["pcg_systems"] / row["systems"]
-    H, g, a = calls[timed]
-    out = solvers.solve_pcg_fast(H, g, a, th)
-    row["timed_pcg_trips"] = out[1].pcg_iterations.reshape(-1).tolist()[:8]
-    row["ms"] = time_ms(lambda: solvers.solve_pcg_fast(H, g, a, th), 200)
-    row["plain_ms"] = time_ms(
-        lambda: solvers.solve_pcg_fast_plain(H, g, a, th), 20)
-    row.update(pcg6_bound(out[1].pcg_iterations))
-    emit(row)
-    if row["failed"]:
-        raise RuntimeError(f"pcg6 {name} differs from the plain twin: "
-                           f"{row}")
-    return row
 
 
-def recording_solves(run, calls):
-    """``run(graph)`` whose first eager call (graph=False) appends the
-    operands of every pcg6 launch, (H, g, analysis) copied, to
-    ``calls``."""
-    from dcreg_tpu_torch.ops import solvers
-    from dcreg_tpu_torch.ops.degeneracy import DegeneracyAnalysis
-
-    def wrapped(graph=None):
-        if graph is not False or calls:
-            return run(graph)
-        launch = solvers._launch_cuda
-
-        def spy(H, g, analysis, thresholds):
-            calls.append((H.clone(), g.clone(), DegeneracyAnalysis(
-                *[f.clone() for f in analysis])))
-            return launch(H, g, analysis, thresholds)
-
-        solvers._launch_cuda = spy
-        try:
-            return run(graph)
-        finally:
-            solvers._launch_cuda = launch
-
-    return wrapped
-
-
-def pcg6_entry(rows, launches):
-    """pcg6's entry of the ``kernels`` line: the times of the map pass's
-    B = 1 row, and each row's."""
-    b1 = rows["B1_map_pass"]
-    return {"name": "pcg6 solve_pcg_fast", "route": "cuda",
-            "source": "dcreg_tpu_torch/csrc/pcg6.cu", "replaces": None,
-            "launches": int(sum(launches.values())),
-            "launches_by_path": launches,
-            "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-            "library_ms": None,
-            "shapes": {k: {f: v[f] for f in (
-                "batch", "systems", "pcg_systems", "timed_pcg_trips", "ms",
-                "plain_ms", "bound_ms", "bound_by", "pcg_max_rel")}
-                for k, v in rows.items()}}
+def pcg6_timed(ops, out):
+    """The timed call's batch, its first PCG trips and its bound."""
+    it = out[1].pcg_iterations
+    return {"batch": list(ops[0].shape[:-2]),
+            "timed_pcg_trips": it.reshape(-1).tolist()[:8],
+            **pcg6_bound(it)}
 
 
 def stacked_solves(calls):
-    """One call of the given B = 1 calls stacked."""
+    """One call of the given B = 1 calls stacked (the first's
+    thresholds)."""
     from dcreg_tpu_torch.ops.degeneracy import DegeneracyAnalysis
     return (torch.cat([c[0] for c in calls]), torch.cat([c[1] for c in calls]),
             DegeneracyAnalysis(*[torch.cat(f) for f in zip(
-                *[c[2] for c in calls])]))
+                *[c[2] for c in calls])]), calls[0][3])
 
 
 # the outputs of plane_fit and of its plain twin, in their order
@@ -871,37 +826,12 @@ def plane_fit_gates(out, twin):
     return row
 
 
-def check_plane_fit(name, calls, launches):
-    """plane_fit against its plain twin on the card on each of ``calls``
-    ((target_xyz, idx_kn, params) as launched): ``plane_fit_gates`` over
-    all of them, the times and bound of the first, and ``launches``, the
-    kernel's launches on the path the calls came from."""
-    from dcreg_tpu_torch.ops import soa_tail
-    target, idx, params = calls[0]
-    B, k, N = idx.shape
-    row = {"phase": "plane_fit_check", "shape": name, "calls": len(calls),
-           "batch": B, "k": k, "points_per_lane": N,
-           "idx_contiguous": idx.is_contiguous()}
-    rows = [plane_fit_gates(soa_tail._plane_fit(t, i, p),
-                            soa_tail._plane_fit_plain(t, i, p))
-            for t, i, p in calls]
-    for f in ("points", "fit_ok", "plane_ok"):
-        row[f] = sum(r[f] for r in rows)
-    row["differ"] = {o: sum(r["differ"][o] for r in rows)
-                     for o in PLANE_FIT_OUTPUTS}
-    row["shown"] = [r["shown"] for r in rows if r["shown"]][:4]
-    row["failed"] = sorted({f for r in rows for f in r["failed"]})
-    row["ms"] = time_ms(lambda: soa_tail._plane_fit(target, idx, params),
-                        200)
-    row["plain_ms"] = time_ms(
-        lambda: soa_tail._plane_fit_plain(target, idx, params), 20)
-    row.update(plane_fit_bound(B, k, N))
-    row["launches"] = launches
-    emit(row)
-    if row["failed"]:
-        raise RuntimeError(f"plane_fit {name} differs from the plain twin: "
-                           f"{row}")
-    return row
+def plane_fit_timed(ops, out):
+    """The timed call's shapes, the ids' layout and its bound."""
+    B, k, N = ops[1].shape
+    return {"batch": B, "k": k, "points_per_lane": N,
+            "idx_contiguous": ops[1].is_contiguous(),
+            **plane_fit_bound(B, k, N)}
 
 
 def same_layout_copy(t):
@@ -911,56 +841,107 @@ def same_layout_copy(t):
         t.untyped_storage().clone(), t.storage_offset(), t.shape, t.stride())
 
 
-def recording_planes(run, calls):
-    """``run(graph)`` whose first eager call (graph=False) appends the
-    operands of its first plane_fit launch, (target_xyz, idx_kn in its
-    layout, params), to ``calls``; the target, the map, is not copied."""
-    from dcreg_tpu_torch.ops import soa_tail
+# --------------------------------------------------------------------------
+# the hand-written kernels against their plain twins inside the program
+# --------------------------------------------------------------------------
+
+# what ``check_kernel`` holds each kernel to: its gates on one call (the
+# operands, the kernel's answer, the twin's), the fields of the timed call
+# (its bound among them), and its gates over all the calls together
+CHECKS = {
+    "pcg6": (lambda ops, out, twin: pcg6_gates(ops[0], ops[1], out, twin,
+                                               ops[3]),
+             pcg6_timed, pcg6_overall),
+    "plane_fit": (lambda ops, out, twin: plane_fit_gates(out, twin),
+                  plane_fit_timed, None)}
+
+
+def combined(rows):
+    """One row of a kernel's gate rows over several calls: counts summed,
+    the worst of each other measure, dicts of counts summed per key, the
+    gates that failed on any call, and what the first four calls with a
+    difference showed of it."""
+    out = {}
+    for key, first in rows[0].items():
+        vals = [r[key] for r in rows]
+        if key == "failed":
+            out[key] = sorted({f for v in vals for f in v})
+        elif key == "shown":
+            out[key] = [v for v in vals if v][:4]
+        elif isinstance(first, dict):
+            out[key] = {k: sum(v[k] for v in vals) for k in first}
+        else:
+            out[key] = (sum if isinstance(first, int) else max)(vals)
+    return out
+
+
+def check_kernel(kernel, name, calls, timed=0, **fields):
+    """``kernel`` (a ``cuda_build.Kernel``) against its plain twin on the
+    card on each of ``calls``, its operands as launched (``recording``),
+    held to its ``CHECKS``: the gates of every call, ``combined``, and
+    those over all of them; the timed call's fields, and the times of the
+    kernel and the twin on it (call ``timed``); ``fields``.  Raises where
+    a gate fails."""
+    gates, timed_fields, overall = CHECKS[kernel.label]
+    row = {"phase": f"{kernel.label}_check", "shape": name,
+           "calls": len(calls)}
+    row.update(combined([gates(ops, kernel(*ops), kernel.twin(*ops))
+                         for ops in calls]))
+    if overall is not None:
+        overall(row)
+    ops = calls[timed]
+    row.update(timed_fields(ops, kernel(*ops)))
+    row["ms"] = time_ms(lambda: kernel(*ops), 200)
+    row["plain_ms"] = time_ms(lambda: kernel.twin(*ops), 20)
+    row.update(fields)
+    emit(row)
+    if row["failed"]:
+        raise RuntimeError(f"{kernel.label} {name} differs from the plain "
+                           f"twin: {row}")
+    return row
+
+
+def copied(x):
+    """``x`` with every tensor in it, through tuples, a
+    ``same_layout_copy``."""
+    if isinstance(x, torch.Tensor):
+        return same_layout_copy(x)
+    if isinstance(x, tuple):
+        items = [copied(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def recording(kernel, run, calls, limit=None):
+    """``run(graph)`` whose first eager call (graph=False) appends copies
+    of the operands of ``kernel``'s launches (``copied``), the first
+    ``limit`` of them, to ``calls``."""
+    def keep(*ops):
+        if limit is None or len(calls) < limit:
+            calls.append(copied(ops))
 
     def wrapped(graph=None):
         if graph is not False or calls:
             return run(graph)
-        launch = soa_tail._launch_cuda
-
-        def spy(target_xyz, idx_kn, params):
-            if not calls:
-                calls.append((target_xyz, same_layout_copy(idx_kn), params))
-            return launch(target_xyz, idx_kn, params)
-
-        soa_tail._launch_cuda = spy
-        try:
+        with kernel.watching(keep):
             return run(graph)
-        finally:
-            soa_tail._launch_cuda = launch
 
     return wrapped
 
 
-def through_the_twin(fn):
-    """``fn()`` with every plane fit on the card run by the plain twin."""
-    from dcreg_tpu_torch.ops import soa_tail
-    launch = soa_tail._launch_cuda
-    soa_tail._launch_cuda = soa_tail._plane_fit_plain
-    try:
-        return fn()
-    finally:
-        soa_tail._launch_cuda = launch
-
-
-def plane_fit_entry(rows, launches):
-    """plane_fit's entry of the ``kernels`` line: the times of the map
-    loop's B = 1 row, and each row's."""
-    b1 = rows["B1_map_first_iteration"]
-    return {"name": "plane_fit _plane_fit", "route": "cuda",
-            "source": "dcreg_tpu_torch/csrc/plane_fit.cu", "replaces": None,
-            "launches": int(sum(launches.values())),
-            "launches_by_path": launches,
-            "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-            "library_ms": None,
-            "shapes": {k: {f: v[f] for f in (
-                "batch", "points", "ms", "plain_ms", "bound_ms", "bound_by",
-                "launches")} for k, v in rows.items()}}
+def kernel_entry(kernel, boundary, rows, launches, main, fields, **extra):
+    """``kernel``'s entry of the ``kernels`` line: its launches in all and
+    per path, the times and bound of row ``main`` of ``rows``, ``fields``
+    of each row, and ``extra``."""
+    m = rows[main]
+    return {"name": f"{kernel.label} {boundary}", "route": "cuda",
+            "source": f"dcreg_tpu_torch/csrc/{kernel.source.name}",
+            "replaces": None, "launches": int(sum(launches.values())),
+            "launches_by_path": launches, "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "shapes": {k: {f: v[f] for f in fields}
+                       for k, v in rows.items()}, **extra}
 
 
 # --------------------------------------------------------------------------
@@ -1160,7 +1141,6 @@ def check_knn(name, query, target, valid, k, kk):
     from dcreg_tpu_torch.ops import knn_kernels as kn
     n, m = query.shape[0], target.shape[0]
     pen = kn._penalty(m, valid, query.device)
-    kn.knn_candidates.last_grid = kn.group_min.last_grid = None
     val, idx = kn.knn_candidates(query, target, pen, kk)
     val_p, idx_p = kn.knn_candidates_plain(query, target, pen, kk)
     gmin = kn.group_min(query, target, pen)
@@ -1195,14 +1175,14 @@ def check_knn(name, query, target, valid, k, kk):
           "plain_ms": time_ms(lambda: kn.knn_candidates_plain(
               query, target, pen, kk), 2),
           "library_ms": time_ms(lib, 1), "max_abs_err": k2_err,
-          "mismatches": k2_bad, "grid": kn.knn_candidates.last_grid}
+          "mismatches": k2_bad, "grid": kn.K2.last_grid}
     k2.update(knn_bound(n, m, n * kk * 8))
     k3 = {"ms": time_ms(lambda: kn.group_min(query, target, pen), 20),
           "plain_ms": time_ms(lambda: kn.group_min_plain(query, target,
                                                           pen), 2),
           "library_ms": time_ms(lib_k3, 1), "max_abs_err": k3_err,
           "mismatches": k3_bad,
-          "grid": kn.group_min.last_grid}
+          "grid": kn.K3.last_grid}
     k3.update(knn_bound(n, m, gmin.numel() * 4))
     emit({"phase": "knn_check", "shape": name, "N": n, "M": m, "k": k,
           "kk": kk, "invalid_targets": 0 if valid is None
@@ -1228,11 +1208,10 @@ def check_k2_graph(name, query, target, valid, kk):
     g = graphs.Graphs(f"K2 {name}", state, {"k2": part}, query.device)
     state.val.fill_(0.0)
     state.idx.fill_(0)
-    before = (kn.knn_candidates.launches, kn.knn_candidates.launches_replayed)
+    tally = Tally()
     g("k2")
     torch.cuda.synchronize()
-    counted = kn.knn_candidates.launches - before[0]
-    replayed = kn.knn_candidates.launches_replayed - before[1]
+    counted, replayed = tally.launches(kn.K2), tally.replayed(kn.K2)
     val_p, idx_p = kn.knn_candidates_plain(query, target, pen, kk)
     bits = lambda x: x.view(torch.int32)
     row = {"phase": "k2_graph_check", "shape": name, "kk": kk,
@@ -1284,9 +1263,9 @@ def knn_checks(seed, T0, device):
         check_k2_graph("d_self_5nn", cyl, cyl, None, 10)
         check_k2_graph("e_nn1", moved, cyl, None, 8)
         check_k2_graph("h_normals_o3d", cyl, cyl, None, 60)
-    kn.group_min.launches = 0
+    tally = Tally()
     dg, ig = kn.knn_grouped(big_q, f32(big), valid, k=5)
-    k3_launches = kn.group_min.launches
+    k3_launches = tally.launches(kn.K3)
     dk, ik = kn.knn(big_q, f32(big), valid, k=5, kk=10)
     same = bool(torch.equal(ig, ik)) and bool(torch.equal(dg, dk))
     emit({"phase": "knn_grouped_check", "shape": "f_65k_invalid",
@@ -1375,28 +1354,20 @@ def pair_harness(world, scenario, cfg, backend, device):
         runner = TestRunner(cfg, dtype=torch.float32, device=device)
         per_method = {}
         t0 = time.perf_counter()
-        kn.knn_candidates.launches = 0
-        kn.knn_candidates.launches_replayed = 0
-        kn.knn_candidates.launches_by_kk = {}
+        run_tally = Tally()
         runner.load_point_clouds(world, world)
         replayed = {}
         for name, det, hand in cfg.methods():
-            before = dict(kn.knn_candidates.launches_by_kk)
-            before_replayed = kn.knn_candidates.launches_replayed
+            tally = Tally()
             runner.run_method(name, det, hand)
-            per_method[name] = {
-                kk: n - before.get(kk, 0)
-                for kk, n in sorted(kn.knn_candidates.launches_by_kk.items())
-                if n > before.get(kk, 0)}
-            replayed[name] = (kn.knn_candidates.launches_replayed
-                              - before_replayed)
+            per_method[name] = tally.by_kk(kn.K2)
+            replayed[name] = tally.replayed(kn.K2)
         runner.finalize_statistics()
         runner.save_results()
         seconds = time.perf_counter() - t0
-        launches = {"total": kn.knn_candidates.launches,
-                    "replayed": kn.knn_candidates.launches_replayed,
-                    "by_kk": dict(sorted(
-                        kn.knn_candidates.launches_by_kk.items()))}
+        launches = {"total": run_tally.launches(kn.K2),
+                    "replayed": run_tally.replayed(kn.K2),
+                    "by_kk": run_tally.by_kk(kn.K2)}
         missing = [f for f in expected_artifacts(cfg)
                    if not os.path.isfile(os.path.join(out, f))
                    or os.path.getsize(os.path.join(out, f)) == 0]
@@ -1607,6 +1578,7 @@ def run_pair(seed: int, device: str = "cuda"):
     method held to its backend agreement.  Returns the K2 and K3 entries
     of the ``kernels`` line."""
     from dcreg_tpu_torch.config import load_config
+    from dcreg_tpu_torch.ops import knn_kernels as kn
     scenarios = pair_scenarios(load_config)
     rows, k3_launches = knn_checks(seed,
                                    scenarios["cylinder"].initial_matrix(),
@@ -1628,42 +1600,29 @@ def run_pair(seed: int, device: str = "cuda"):
            if not a["ok"]]
     if bad:
         raise RuntimeError(f"grid and brute-force backends disagree: {bad}")
-    d = rows["d_self_5nn"]
-    k2 = {"name": "K2 knn_candidates", "route": "cuda",
-          "source": "dcreg_tpu_torch/csrc/knn.cu",
-          "replaces": "dcreg_tpu/ops/pallas_knn.py:47",
-          "launches": sum(v["total"] for v in launches.values()),
-          "launches_by_path": {p: v["total"] for p, v in launches.items()},
-          "launches_from_replays_by_path": {p: v["replayed"]
-                                            for p, v in launches.items()},
-          "launches_by_path_and_kk": {p: v["by_kk"]
-                                      for p, v in launches.items()},
-          "launches_per_method_run": {
-              f"{s}_{b}": {m: r["k2_launches_by_kk"] for m, r in s_b.items()}
-              for (s, b), s_b in runs.items()},
-          "max_abs_err": max(r[0]["max_abs_err"] for r in rows.values()),
-          "ms": d[0]["ms"], "plain_ms": d[0]["plain_ms"],
-          "bound_ms": d[0]["bound_ms"], "bound_by": d[0]["bound_by"],
-          "library_ms": d[0]["library_ms"],
-          "library": "torch.cdist + torch.topk (two calls)",
-          "shapes": {k: {f: v[0][f] for f in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "grid")}
-                     for k, v in rows.items()}}
-    f = rows["f_65k_invalid"][1]
-    k3 = {"name": "K3 group_min", "route": "cuda",
-          "source": "dcreg_tpu_torch/csrc/knn.cu",
-          "replaces": "dcreg_tpu/ops/pallas_knn.py:196",
-          "launches": k3_launches,
-          "launches_by_path": {"knn_grouped_check_f": k3_launches},
-          "max_abs_err": max(r[1]["max_abs_err"] for r in rows.values()),
-          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-          "bound_by": f["bound_by"], "library_ms": f["library_ms"],
-          "library": "torch.cdist + torch.amin over 128-target groups",
-          "shapes": {k: {g: v[1][g] for g in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "grid")}
-                     for k, v in rows.items()}}
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "grid")
+    k2_rows = {k: v[0] for k, v in rows.items()}
+    k2 = kernel_entry(
+        kn.K2, "knn_candidates", k2_rows,
+        {p: v["total"] for p, v in launches.items()}, "d_self_5nn", fields,
+        replaces="dcreg_tpu/ops/pallas_knn.py:47",
+        launches_from_replays_by_path={p: v["replayed"]
+                                       for p, v in launches.items()},
+        launches_by_path_and_kk={p: v["by_kk"] for p, v in launches.items()},
+        launches_per_method_run={
+            f"{s}_{b}": {m: r["k2_launches_by_kk"] for m, r in s_b.items()}
+            for (s, b), s_b in runs.items()},
+        max_abs_err=max(r["max_abs_err"] for r in k2_rows.values()),
+        library_ms=k2_rows["d_self_5nn"]["library_ms"],
+        library="torch.cdist + torch.topk (two calls)")
+    k3_rows = {k: v[1] for k, v in rows.items()}
+    k3 = kernel_entry(
+        kn.K3, "group_min", k3_rows, {"knn_grouped_check_f": k3_launches},
+        "f_65k_invalid", fields, replaces="dcreg_tpu/ops/pallas_knn.py:196",
+        max_abs_err=max(r["max_abs_err"] for r in k3_rows.values()),
+        library_ms=k3_rows["f_65k_invalid"]["library_ms"],
+        library="torch.cdist + torch.amin over 128-target groups")
     return k2, k3
 
 
@@ -1806,9 +1765,9 @@ def run_voxel(seed, ctx, device: str = "cuda"):
     q = torch.as_tensor(frames[0], device=device) @ T[:3, :3].T + T[:3, 3]
     tube_t = world_t[torch.as_tensor(tube_idx, device=device)].contiguous()
     dv, iv = voxel_knn(grid, q, k=5, capacity=cap, chunk=params.chunk)
-    kn.knn_candidates.launches = 0
+    tally = Tally()
     dk, ik = kn.knn(q, tube_t, k=5)
-    k2_launches = kn.knn_candidates.launches
+    k2_launches = tally.launches(kn.K2)
     ik = torch.as_tensor(tube_idx, device=device)[ik]
     sel = dv[:, 4] < radius ** 2
     ulps = ulp_diff(dv[sel], dk[sel])
@@ -2335,9 +2294,9 @@ def run_sharded(seed, ctx, device: str = "cuda"):
     tree, tree_s = wall(lambda: native.KDTree(tube))
     (d_t, i_t), kd_s = wall(lambda: tree.knn(q.cpu().numpy(), k=6))
     tube_t = torch.as_tensor(tube, device=device)
-    kn.knn_candidates.launches = 0
+    tally = Tally()
     (dk, ik), k2_s = wall(lambda: kn.knn(q, tube_t, k=5, kk=8))
-    k2_launches = kn.knn_candidates.launches
+    k2_launches = tally.launches(kn.K2)
     dk, ik = dk.cpu(), ik.cpu().numpy()
     ulps = ulp_diff(dk, torch.from_numpy(np.ascontiguousarray(d_t[:, :5])))
     tie = np.any(d_t[:, 1:] == d_t[:, :-1], axis=1)
@@ -2462,20 +2421,17 @@ def run_corridor(device: str = "cuda"):
         key_radius=inp["params"].corr.search_radius))
 
     by_method = {}                    # K1's launches per method in main
+    tally = Tally()
 
     def after_method(name):
-        by_method[name] = tk.block_knn_keys.launches \
-            - sum(by_method.values())
+        by_method[name] = tally.launches(tk.K1) - sum(by_method.values())
 
     out_dir = rce.default_out_dir()
-    tk.block_knn_keys.launches = 0
-    tsol.solve_pcg_fast.launches = 0
-    soa_tail._plane_fit.launches = 0
     rc, seconds = wall(lambda: rce.main(out_dir, device, inputs=inp,
                                         after_method=after_method))
-    launches = tk.block_knn_keys.launches
-    pcg6_launches = tsol.solve_pcg_fast.launches
-    plane_launches = soa_tail._plane_fit.launches
+    launches = tally.launches(tk.K1)
+    pcg6_launches = tally.launches(tsol.PCG6)
+    plane_launches = tally.launches(soa_tail.PLANE_FIT)
     with open(os.path.join(out_dir, "corridor_summary.json")) as f:
         summary = json.load(f)
     poses = {m: load_tum(os.path.join(out_dir, f"{m}.tum"))[1]
@@ -2517,13 +2473,15 @@ def run_corridor(device: str = "cuda"):
 
     det, hand = next((d, h) for m, d, h in rce.METHODS if m == "DCReg")
     solves = []
-    recording_solves(lambda graph: rce.run_method(
+    recording(tsol.PCG6, lambda graph: rce.run_method(
         inp, det, hand, device, graph=graph), solves)(False)
     first = next((i for i, c in enumerate(solves)
                   if bool(c[2].is_degenerate.any())), 0)
-    pcg6_rows = {"B1_corridor": check_pcg6("B1_corridor", solves, first),
-                 "B128_corridor": check_pcg6(
-                     "B128_corridor", [stacked_solves(solves[:128])])}
+    pcg6_rows = {"B1_corridor": check_kernel(tsol.PCG6, "B1_corridor",
+                                             solves, first),
+                 "B128_corridor": check_kernel(
+                     tsol.PCG6, "B128_corridor",
+                     [stacked_solves(solves[:128])])}
     if min(r["pcg_systems"] for r in pcg6_rows.values()) == 0:
         raise RuntimeError(f"the corridor's DCReg took no PCG: {pcg6_rows}")
 
@@ -2571,9 +2529,9 @@ def run_map_baselines(ctx, device: str = "cuda"):
                 reuse_margin=REUSE_MARGIN, device=device)
 
         wall(lambda: run_b(MAP_BASELINE_WARM_FRAMES))
-        tk.block_knn_keys.launches = 0
+        tally = Tally()
         res, dt = wall(lambda: run_b(MAP_BASELINE_FRAMES))
-        k1 = tk.block_knn_keys.launches
+        k1 = tally.launches(tk.K1)
         launches += k1
         est = res.poses.double().cpu().numpy()
         te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
@@ -2728,12 +2686,7 @@ def run(seed: int, device: str = "cuda"):
 
     params = ICPParams()
     launches, pcg6_launches, plane_launches = {}, {}, {}
-    planes = soa_tail._plane_fit
-
-    def reset_counts():
-        tk.block_knn_keys.launches = 0
-        tsol.solve_pcg_fast.launches = 0
-        planes.launches = planes.launches_replayed = 0
+    PLANE, PCG6 = soa_tail.PLANE_FIT, tsol.PCG6
 
     # ---- 2. the localization loop, replayed as CUDA graphs ---------------
     def run_odom(n=FRAMES, graph=None, mi=mindex, wt=world_t, shift=None):
@@ -2753,12 +2706,12 @@ def run(seed: int, device: str = "cuda"):
     capture_s = graphs.CACHE.capture_seconds - cap0[1]
     held_mib = [(torch.cuda.memory_allocated() - mem0[0]) / 2 ** 20,
                 (torch.cuda.memory_reserved() - mem0[1]) / 2 ** 20]
-    reset_counts()
+    tally = Tally()
     res, dt = wall(run_odom)
-    launches["odometry"] = tk.block_knn_keys.launches
-    pcg6_launches["odometry"] = tsol.solve_pcg_fast.launches
-    plane_launches["odometry"] = planes.launches
-    plane_replayed = planes.launches_replayed
+    launches["odometry"] = tally.launches(tk.K1)
+    pcg6_launches["odometry"] = tally.launches(PCG6)
+    plane_launches["odometry"] = tally.launches(PLANE)
+    plane_replayed = tally.replayed(PLANE)
     est = res.poses.cpu().numpy()
     te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
     odom = {"phase": "odometry", "frames": FRAMES, "graphed": True,
@@ -2787,18 +2740,19 @@ def run(seed: int, device: str = "cuda"):
         raise RuntimeError(f"plane_fit launches differ from the loop's "
                            f"ICP iterations: {odom}")
     map_solves, map_planes, pcg6_rows, plane_rows = [], [], {}, {}
-    emit(eager_vs_graphed(recording_planes(recording_solves(
-        lambda graph: run_odom(EAGER_CHECK_FRAMES, graph), map_solves),
-        map_planes), "odometry_eager_vs_graphed"))
+    emit(eager_vs_graphed(recording(PLANE, recording(
+        PCG6, lambda graph: run_odom(EAGER_CHECK_FRAMES, graph), map_solves),
+        map_planes, limit=1), "odometry_eager_vs_graphed"))
     emit(stale_cache_check(run_odom, res, world, device))
     # pcg6 on the eager pass's own systems, each as launched (B = 1)
-    pcg6_rows["B1_map_pass"] = check_pcg6("B1_map_pass", map_solves)
+    pcg6_rows["B1_map_pass"] = check_kernel(PCG6, "B1_map_pass", map_solves)
     # plane_fit on the eager pass's first ICP iteration, as launched
-    plane_rows["B1_map_first_iteration"] = check_plane_fit(
-        "B1_map_first_iteration", map_planes, plane_launches["odometry"])
+    plane_rows["B1_map_first_iteration"] = check_kernel(
+        PLANE, "B1_map_first_iteration", map_planes,
+        launches=plane_launches["odometry"])
     # the 128 frames again, every plane fit through the plain twin (eager)
-    twin_res, twin_s = wall(lambda: through_the_twin(
-        lambda: run_odom(graph=False)))
+    with PLANE.through_the_twin():
+        twin_res, twin_s = wall(lambda: run_odom(graph=False))
     twin_row = {"phase": "odometry_plane_fit_vs_twin", "frames": FRAMES,
                 "twin_eager_s": twin_s,
                 "same_iterations": bool(torch.equal(res.iterations,
@@ -2829,17 +2783,18 @@ def run(seed: int, device: str = "cuda"):
             known_t[lanes], graph=graph, **fleet_args)
 
     fleet_tick()
-    reset_counts()
+    tally = Tally()
     tick = fleet_tick()
-    plane_launches["fleet_tick"] = planes.launches
-    if planes.launches != int(tick.iterations.max()):
-        raise RuntimeError(f"plane_fit launches {planes.launches} differ "
-                           f"from the fleet tick's steps "
-                           f"{tick.iterations.tolist()}")
+    plane_launches["fleet_tick"] = tally.launches(PLANE)
+    if plane_launches["fleet_tick"] != int(tick.iterations.max()):
+        raise RuntimeError(f"plane_fit launches "
+                           f"{plane_launches['fleet_tick']} differ from the "
+                           f"fleet tick's steps {tick.iterations.tolist()}")
     fleet_planes = []
-    recording_planes(fleet_tick, fleet_planes)(False)
-    plane_rows["B8_fleet_first_tick"] = check_plane_fit(
-        "B8_fleet_first_tick", fleet_planes, plane_launches["fleet_tick"])
+    recording(PLANE, fleet_tick, fleet_planes, limit=1)(False)
+    plane_rows["B8_fleet_first_tick"] = check_kernel(
+        PLANE, "B8_fleet_first_tick", fleet_planes,
+        launches=plane_launches["fleet_tick"])
     for graph in (None, False):
         held = {}
 
@@ -2864,19 +2819,19 @@ def run(seed: int, device: str = "cuda"):
                              device=device, graph=graph)
 
     wall(mc)
-    reset_counts()
+    tally = Tally()
     out, dt = wall(mc)
-    launches["mc_map"] = tk.block_knn_keys.launches
-    pcg6_launches["mc_map"] = tsol.solve_pcg_fast.launches
-    plane_launches["mc_map"] = planes.launches
+    launches["mc_map"] = tally.launches(tk.K1)
+    pcg6_launches["mc_map"] = tally.launches(PCG6)
+    plane_launches["mc_map"] = tally.launches(PLANE)
     mc_solves, mc_planes = [], []
-    eager = batch_against_eager(out, recording_planes(
-        recording_solves(mc, mc_solves), mc_planes))
+    eager = batch_against_eager(out, recording(
+        PLANE, recording(PCG6, mc, mc_solves), mc_planes, limit=1))
     # pcg6 on the eager rerun's own systems, each as launched (B = 128)
-    pcg6_rows["B128_mc_map"] = check_pcg6("B128_mc_map", mc_solves)
+    pcg6_rows["B128_mc_map"] = check_kernel(PCG6, "B128_mc_map", mc_solves)
     # plane_fit on the eager rerun's first ICP iteration (B = 128)
-    plane_rows["B128_mc_frame"] = check_plane_fit(
-        "B128_mc_frame", mc_planes, plane_launches["mc_map"])
+    plane_rows["B128_mc_frame"] = check_kernel(
+        PLANE, "B128_mc_frame", mc_planes, launches=plane_launches["mc_map"])
     last = (out.iterations.long() - 1).clamp(min=0)
     lane = torch.arange(BATCH, device=last.device)
     te = out.log.trans_error[lane, last].cpu().numpy()
@@ -2896,22 +2851,22 @@ def run(seed: int, device: str = "cuda"):
         raise RuntimeError(f"map-mode batch gates failed: {row}")
     emit(profile_window("mc_map_profile", mc))
 
-    # ---- 4. BlockIndex batch, then eagerly, then with the plain K1 -------
+    # ---- 4. BlockIndex batch, then eagerly, then through K1's twin -------
     blk_t = torch.as_tensor(blk, device=device)
 
-    def blk_run(plain=False, graph=None):
+    def blk_run(graph=None):
         return icp_batch_so3(blk_t, blk_t, R0b, t0b, DET, HAND, params,
-                             bindex, Pb, device=device, plain_knn=plain,
-                             graph=graph)
+                             bindex, Pb, device=device, graph=graph)
 
     wall(blk_run)
-    reset_counts()
+    tally = Tally()
     out, dt = wall(blk_run)
-    launches["mc_block"] = tk.block_knn_keys.launches
-    pcg6_launches["mc_block"] = tsol.solve_pcg_fast.launches
-    plane_launches["mc_block"] = planes.launches
+    launches["mc_block"] = tally.launches(tk.K1)
+    pcg6_launches["mc_block"] = tally.launches(PCG6)
+    plane_launches["mc_block"] = tally.launches(PLANE)
     eager = batch_against_eager(out, blk_run)
-    ref = blk_run(plain=True)
+    with tk.K1.through_the_twin():
+        ref = blk_run(graph=False)
     last = (out.iterations.long() - 1).clamp(min=0)
     te = out.log.trans_error[lane, last].cpu().numpy()
     same_iters = bool(torch.equal(out.iterations, ref.iterations))
@@ -2948,31 +2903,21 @@ def run(seed: int, device: str = "cuda"):
            "mindex": mindex, "world_t": world_t, "caps": (S, G, P),
            "pcg6": (pcg6_rows, pcg6_launches),
            "plane_fit": (plane_rows, plane_launches)}
-    return ctx, {
-        "name": "K1 block_knn_keys", "route": "cuda",
-        "source": "dcreg_tpu_torch/csrc/block_knn.cu",
-        "replaces": "dcreg_tpu/ops/pallas_block_knn.py:91",
-        "launches": int(sum(launches.values())),
-        "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": a["ms"], "plain_ms": a["plain_ms"],
-        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-        "library_ms": None,
-        "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "pairs", "B", "nsplit",
-                                          "ctas", "run_max")}
-                   for k, v in rows.items()}}
+    return ctx, kernel_entry(
+        tk.K1, "block_knn_keys", rows, launches, "a_map_B1_slotted_nomask",
+        ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "B", "nsplit",
+         "ctas", "run_max"), replaces="dcreg_tpu/ops/pallas_block_knn.py:91",
+        max_abs_err=max(r["max_abs_err"] for r in rows.values()))
 
 
 def build_kernels():
-    """Build every CUDA source at once (one nvcc each, in parallel)."""
+    """Build every CUDA source at once (one nvcc each, in parallel): the
+    libraries of the port's kernels (``cuda_build.kernels``)."""
     from concurrent.futures import ThreadPoolExecutor
-    from dcreg_tpu_torch.ops import block_knn, knn_kernels, soa_tail, solvers
-    mods = {"block_knn.cu": block_knn, "knn.cu": knn_kernels,
-            "pcg6.cu": solvers, "plane_fit.cu": soa_tail}
-    with ThreadPoolExecutor(len(mods)) as ex:
-        futures = {name: ex.submit(m.build_library)
-                   for name, m in mods.items()}
+    from dcreg_tpu_torch.cuda_build import kernels
+    by_source = {k.source.name: k for k in kernels()}
+    with ThreadPoolExecutor(len(by_source)) as ex:
+        futures = {name: ex.submit(k.build) for name, k in by_source.items()}
         for name, fut in futures.items():
             b = fut.result()
             emit({"phase": "build", "source": name, "seconds": b["seconds"],
@@ -3014,6 +2959,7 @@ def main():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.ops import knn_kernels as kn
+    from dcreg_tpu_torch.ops import soa_tail, solvers
     build_kernels()
     ctx, k1 = run(args.seed)
     k2, k3 = run_pair(args.seed)
@@ -3021,12 +2967,11 @@ def main():
                                                                ctx)),
                         ("native_kdtree_check",
                          lambda: run_sharded(args.seed, ctx))):
-        replayed = kn.knn_candidates.launches_replayed
+        tally = Tally()
         n = phase()
         k2["launches"] += n
         k2["launches_by_path"][path] = n
-        k2["launches_from_replays_by_path"][path] = \
-            kn.knn_candidates.launches_replayed - replayed
+        k2["launches_from_replays_by_path"][path] = tally.replayed(kn.K2)
     corridor, k1_corridor, pcg6_corridor, pcg6_corridor_launches, \
         plane_corridor_launches = run_corridor()
     k1["shapes"]["corridor_live_B1_reuse_mask"] = {
@@ -3046,8 +2991,17 @@ def main():
     plane_launches["corridor"] = plane_corridor_launches
     if plane_corridor_launches <= 0:
         raise RuntimeError("plane_fit not launched on the corridor")
-    emit({"kernels": [k1, k2, k3, pcg6_entry(pcg6_rows, pcg6_launches),
-                      plane_fit_entry(plane_rows, plane_launches)]})
+    emit({"kernels": [
+        k1, k2, k3,
+        kernel_entry(solvers.PCG6, "solve_pcg_fast", pcg6_rows,
+                     pcg6_launches, "B1_map_pass", (
+                         "batch", "systems", "pcg_systems",
+                         "timed_pcg_trips", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "pcg_max_rel")),
+        kernel_entry(soa_tail.PLANE_FIT, "_plane_fit", plane_rows,
+                     plane_launches, "B1_map_first_iteration", (
+                         "batch", "points", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "launches"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

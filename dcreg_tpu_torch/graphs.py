@@ -18,11 +18,11 @@ On the CPU the same parts run eagerly (``run_eager``); nothing falls
 back from a graph to eager execution: a capture error raises, naming the
 part.
 
-Kernel launches inside a capture are not launches: the wrappers report
-them through ``note_launch``, which tallies them into the capture, and
-each replay adds the tally to the wrappers' counters, so ``launches``
-counts what the card ran (and ``launches_replayed`` the part of it that
-came from replays).
+Kernel launches inside a capture are not launches: each
+``cuda_build.Kernel`` reports its launches through ``note_launch``, which
+tallies them into the capture, and each replay adds the tally to the
+kernels' counters, so ``launches`` counts what the card ran (and
+``launches_replayed`` the part of it that came from replays).
 
 Likewise a profiler range inside a part would run once, at capture, and
 never at a replay.  So a part names its modules with ``mark``: at every
@@ -39,9 +39,11 @@ in ``drive`` are spans too (``graphs.bind``, ``graphs.replay``,
 Every loop class (``BatchLoop``, ``MapLoop``, ``PairLoop``,
 ``EulerLoop``, ``VoxelLoop``, ``XICPLoop``, ``O3DLoop``,
 ``SuperLocLoop``, ``PoseGraphLoop``, ``ShardedLoop``) has ``key()`` and
-``parts(state)``; ``bind`` gives the runner of its parts and their
-state, and ``drive`` runs one pass of the loop (a loop with no ``step``
-part, as ``SuperLocLoop``, runs with ``max_iterations`` 0);
+the methods ``prologue``, ``step`` (where it has one) and ``epilogue``
+over a state, its parts (``parts``); ``bind`` gives the runner of its
+parts and their state, and ``drive`` runs one pass of the loop (a loop
+with no ``step`` part, as ``SuperLocLoop``, runs with ``max_iterations``
+0);
 ``drive_lanes`` runs a loop of independent lanes (a fleet's ``MapLoop``).  A loop
 whose parts hold collectives captures in ``capture_error_mode``
 "thread_local" (``ShardedLoop``).
@@ -73,24 +75,24 @@ class Stats:
 STATS = Stats()
 
 
-def _bump(wrapper, kk, n: int, replayed: bool = False) -> None:
-    wrapper.launches += n
+def _bump(kernel, kk, n: int, replayed: bool = False) -> None:
+    kernel.launches += n
     if replayed:
-        wrapper.launches_replayed = getattr(wrapper, "launches_replayed",
-                                            0) + n
+        kernel.launches_replayed += n
     if kk is not None:
-        by_kk = wrapper.launches_by_kk
+        by_kk = kernel.launches_by_kk
         by_kk[kk] = by_kk.get(kk, 0) + n
 
 
-def note_launch(wrapper, kk=None) -> None:
-    """Count one launch of a kernel ``wrapper`` (its ``launches``, and
-    ``launches_by_kk[kk]`` where ``kk`` is given).  Under a capture the
-    launch goes into the graph's tally instead; each replay counts it."""
+def note_launch(kernel, kk=None) -> None:
+    """Count one launch of ``kernel`` (a ``cuda_build.Kernel``: its
+    ``launches``, and ``launches_by_kk[kk]`` where ``kk`` is given).
+    Under a capture the launch goes into the graph's tally instead; each
+    replay counts it."""
     if _RECORDING:
-        _RECORDING[-1][(wrapper, kk)] += 1
+        _RECORDING[-1][(kernel, kk)] += 1
     else:
-        _bump(wrapper, kk, 1)
+        _bump(kernel, kk, 1)
 
 
 class _Driver:
@@ -152,8 +154,8 @@ def _driver() -> _Driver:
 
 
 class Capture(collections.Counter):
-    """One part's capture in progress: the kernel launches its wrappers
-    made, by (wrapper, kk) (``note_launch``), and its marks, ``modules``
+    """One part's capture in progress: the kernel launches it made, by
+    (kernel, kk) (``note_launch``), and its marks, ``modules``
     [(name, first, end)] over the part's device operations in capture
     order, in the order the marks opened."""
 
@@ -226,17 +228,13 @@ class State:
         return cls(*(self.__dict__[f"{prefix}.{n}"] for n in cls._fields))
 
 
-def use_graphs(device: torch.device, graph, plain_knn: bool = False) -> bool:
+def use_graphs(device: torch.device, graph) -> bool:
     """Whether a compiled loop runs as graphs: by default on the card
-    (``jit`` is always on in the JAX package) unless the plain K1 twin is
-    asked for, which syncs with the host; never on the CPU."""
+    (``jit`` is always on in the JAX package), never on the CPU."""
     if graph is None:
-        return device.type == "cuda" and not plain_knn
+        return device.type == "cuda"
     if graph and device.type != "cuda":
         raise ValueError(f"graph=True needs a CUDA device, got {device}")
-    if graph and plain_knn:
-        raise ValueError("graph=True cannot capture the plain K1 twin "
-                         "(plain_knn=True): it reads the host")
     return bool(graph)
 
 
@@ -263,6 +261,14 @@ def tensor_key(*objs) -> tuple:
     for o in objs:
         walk(o)
     return tuple(out)
+
+
+def parts(loop, S) -> dict:
+    """The parts of ``loop`` over the state ``S`` by name: its
+    ``prologue``, ``step`` (where it has one) and ``epilogue``."""
+    return {name: functools.partial(getattr(loop, name), S)
+            for name in ("prologue", "step", "epilogue")
+            if hasattr(loop, name)}
 
 
 def run_eager(parts: dict):
@@ -383,10 +389,10 @@ def bind(loop, load, graphed: bool, label: str, device):
         if not graphed:
             state = State()
             load(state)
-            return run_eager(loop.parts(state)), state
+            return run_eager(parts(loop, state)), state
         mode = getattr(loop, "capture_error_mode", "global")
         entry = CACHE.lookup(loop.key(), load,
-                             lambda s: Graphs(label, s, loop.parts(s),
+                             lambda s: Graphs(label, s, parts(loop, s),
                                               device, mode))
         return entry, entry.state
 
@@ -408,28 +414,20 @@ def drive(run, S, max_iterations: int) -> None:
     run("epilogue")
 
 
-def drive_lanes(run, S, max_iterations: int, lanes: int) -> tuple:
-    """``drive`` for a loop of ``lanes`` independent lanes whose step
-    writes ``left``, (lanes still running, lanes aborted or over their
-    pair list): one host read of it after each step, until no lane runs
-    or ``max_iterations`` steps ran; then the epilogue.  Returns (steps,
-    lane steps: the sum over steps of the lanes running in each, so the
-    lanes' iterations, lanes failed at the last read), all from the reads
-    the loop makes anyway."""
+def drive_lanes(run, S, max_iterations: int) -> None:
+    """``drive`` for a loop of independent lanes whose step writes
+    ``left``, (lanes still running, lanes aborted or over their pair
+    list): one host read of it after each step, until no lane runs or
+    ``max_iterations`` steps ran; then the epilogue."""
     run("prologue")
-    steps = lane_steps = failed = 0
-    running = lanes
     for _ in range(max_iterations):
         run("step")
-        steps += 1
-        lane_steps += running
         STATS.host_reads += 1
         with tracing.span("graphs.done_read"):
-            running, failed = S.left.tolist()     # one host sync per step
+            running = S.left.tolist()[0]          # one host sync per step
         if not running:
             break
     run("epilogue")
-    return steps, lane_steps, failed
 
 
 def detached(tree):

@@ -13,7 +13,6 @@ on the card and replayed (``graphs``); the host reads the done flag
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -236,19 +235,13 @@ class PairInputs:
     """What the loops of the pair engines (``PairLoop``, ``EulerLoop``,
     ``XICPLoop``, ``O3DLoop``, ``SuperLocLoop``) share: ``load`` copies
     the per-call inputs into the state (source ``src``, ``R0``, ``t0``,
-    ``T_gt``), and ``parts`` names the loop's prologue, step (where it
-    has one) and epilogue over that state."""
+    ``T_gt``)."""
 
     def load(self, S, source_xyz, R0, t0, T_gt) -> None:
         S.put("src", source_xyz)
         S.put("R0", R0)
         S.put("t0", t0)
         S.put("T_gt", T_gt)
-
-    def parts(self, S) -> dict:
-        return {name: functools.partial(getattr(self, name), S)
-                for name in ("prologue", "step", "epilogue")
-                if hasattr(self, name)}
 
 
 class PairLoop(PairInputs):

@@ -86,7 +86,7 @@ class BatchLoop:
                  detection: DetectionMethod, handling: HandlingMethod,
                  params: ICPParams, num_pairs: int, num_supers: int,
                  max_per_query: int, initial_cull_radius, reuse_pair_list,
-                 device, plain_knn: bool = False, per_lane: bool = False):
+                 device, per_lane: bool = False):
         self.map_mode = isinstance(index, MapIndex)
         if self.map_mode and (num_supers <= 0 or max_per_query <= 0):
             raise ValueError("map mode needs num_supers and max_per_query")
@@ -111,7 +111,6 @@ class BatchLoop:
         self.fast = (detection is DetectionMethod.SCHUR_CONDITION_NUMBER and
                      handling is HandlingMethod.PRECONDITIONED_CG)
         self.dev, self.dtype = device, torch.float32
-        self.plain_knn = plain_knn
 
     def key(self) -> tuple:
         mode = "reuse" if self.reuse else "map" if self.map_mode else "block"
@@ -303,7 +302,6 @@ class BatchLoop:
         vals, idx = batched_block_knn(bi, S.src_blocks, poses12, qid, tid,
                                       radius=self.radius, covered=covered,
                                       lane_mask=lmask, layout="kn",
-                                      plain=self.plain_knn,
                                       per_lane=self.per_lane, **knn_kwargs)
         return vals, idx, overflow
 
@@ -415,11 +413,6 @@ class BatchLoop:
                                                   dim=(1, 2))
             S.put("cov", torch.where(ok[:, None, None], inv, 1e6 * eye6))
 
-    def parts(self, S) -> dict:
-        return {"prologue": lambda: self.prologue(S),
-                "step": lambda: self.step(S),
-                "epilogue": lambda: self.epilogue(S)}
-
     def result(self, S) -> BatchICPResult:
         return BatchICPResult(R=S.Rs, t=S.ts, converged=S.conv,
                               aborted=S.abt, iterations=S.iters,
@@ -435,8 +428,7 @@ def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
                   params: ICPParams, index, num_pairs: int, T_gt=None,
                   num_supers: int = 0, max_per_query: int = 0,
                   initial_cull_radius=None, reuse_pair_list: float = 0.0,
-                  device=None, plain_knn: bool = False,
-                  graph=None) -> BatchICPResult:
+                  device=None, graph=None) -> BatchICPResult:
     """Run B registrations of one (source, target) pair to convergence.
 
     source_xyz (N, 3) sorted body-frame points; target_xyz (M, 3) the same
@@ -456,16 +448,13 @@ def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
     graphs, captured at the first call of their statics and replayed
     after (``graphs.CACHE``); ``graph=False`` runs them eagerly, for
     checking only; on the CPU they run eagerly and ``graph=True`` raises.
-    ``plain_knn=True`` runs K1's plain PyTorch twin instead of the kernel
-    (eagerly, as it reads the host) -- for checking the kernel against it
-    on the card only.
     """
     check_precise()
     dev = resolve_device(device)
     if _index_device(index).type != dev.type:
         raise ValueError(f"index lives on {_index_device(index)}, engine "
                          f"runs on {dev}")
-    graphed = graphs.use_graphs(dev, graph, plain_knn)
+    graphed = graphs.use_graphs(dev, graph)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     source_xyz, target_xyz = f32(source_xyz), f32(target_xyz)
     R0s, t0s = f32(R0s), f32(t0s)
@@ -474,7 +463,7 @@ def icp_batch_so3(source_xyz, target_xyz, R0s, t0s,
     loop = BatchLoop(index, target_xyz, R0s.shape[0], source_xyz.shape[0],
                      detection, handling, params, num_pairs, num_supers,
                      max_per_query, initial_cull_radius, reuse_pair_list,
-                     dev, plain_knn=plain_knn)
+                     dev)
 
     def load(S):
         loop.load(S, source_xyz, R0s, t0s, T_gt)

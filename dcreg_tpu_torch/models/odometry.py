@@ -234,11 +234,6 @@ class VoxelLoop:
         S.put("t_prev", t)
         S.put("f", S.f + 1)
 
-    def parts(self, S) -> dict:
-        return {"prologue": lambda: self.prologue(S),
-                "step": lambda: self.step(S),
-                "epilogue": lambda: self.epilogue(S)}
-
 
 def _odometry_impl(frames, frames_valid, grid: VoxelGrid, T0, detection,
                    handling, params: OdometryParams,
@@ -365,6 +360,9 @@ class MapLoop:
         S.put("t0", t_pred if self.fleet else t_pred[None])
         self.loop.prologue(S)
 
+    def step(self, S) -> None:
+        self.loop.step(S)
+
     def epilogue(self, S) -> None:
         self.loop.finish(S)
         lane = slice(None) if self.fleet else 0
@@ -387,11 +385,6 @@ class MapLoop:
         S.put("R_prev", R)
         S.put("t_prev", t)
         S.put("f", S.f + 1)
-
-    def parts(self, S) -> dict:
-        return {"prologue": lambda: self.prologue(S),
-                "step": lambda: self.loop.step(S),
-                "epilogue": lambda: self.epilogue(S)}
 
 
 def _odometry_map_impl(frames, map_xyz, mindex, T0, T_prev, detection,
@@ -529,9 +522,7 @@ def _odometry_fleet_impl(scans, map_xyz, mindex, T0, T_prev, detection,
     mloop = MapLoop(loop, use_constant_velocity, frame_analysis_fast, 1)
     run, S = graphs.bind(mloop, lambda S: mloop.load(S, scans, T0, T_prev),
                          graphed, "run_odometry_fleet", device)
-    steps, lane_steps, failed = graphs.drive_lanes(
-        run, S, params.max_iterations, L)
-    tracing.FLEET.add(L, steps, lane_steps, failed)
+    graphs.drive_lanes(run, S, params.max_iterations)
     with tracing.span("odometry.results"):
         return MapOdometryResult(*(getattr(S, f"out.{name}").clone()
                                    for name in MapOdometryResult._fields))
@@ -571,8 +562,7 @@ def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
     the card the parts replay CUDA graphs keyed on S and the statics;
     ``graph=False`` runs them eagerly, for checking only; on the CPU they
     run eagerly.  Each call is an ``odometry.fleet_call`` span with the
-    sensor count; ``tracing.FLEET`` counts its steps, lane iterations and
-    failed lanes from the reads the loop makes anyway."""
+    sensor count."""
     check_precise()
     dev = resolve_device(device)
     graphed = graphs.use_graphs(dev, graph)

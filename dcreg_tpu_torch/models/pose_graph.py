@@ -220,11 +220,6 @@ class PoseGraphLoop:
     def epilogue(self, S) -> None:
         S.put("final_cost", self._system(S, S.poses)[2])
 
-    def parts(self, S) -> dict:
-        return {"prologue": lambda: self.prologue(S),
-                "step": lambda: self.step(S),
-                "epilogue": lambda: self.epilogue(S)}
-
 
 def optimize_pose_graph(poses0, edges: PoseGraphEdges, prior_idx=None,
                         prior_T=None, prior_info=None,

@@ -10,20 +10,18 @@ candidate id in the low IB bits (global ``tid * TB + row``, or slot-local
 ``slot * TB + row`` in map mode), so merging top-5 lists compares keys
 only.
 
-``block_knn_keys`` is the kernel boundary.  A tensor on the card goes to
-the hand-written CUDA kernel K1 (``csrc/block_knn.cu``, built on first use
-with nvcc and bound with ctypes); a tensor on the CPU goes to the plain
-PyTorch twin ``block_knn_keys_plain``, which computes the same keys with
-the same operation order.  K1 splits each query block's run of pairs
+``block_knn_keys`` is the kernel boundary (``K1``, a
+``cuda_build.Kernel``).  A tensor on the card goes to the hand-written
+CUDA kernel K1 (``csrc/block_knn.cu``, built on first use with nvcc and
+bound with ctypes); a tensor on the CPU goes to the plain PyTorch twin
+``block_knn_keys_plain``, which computes the same keys with the same
+operation order.  K1 splits each query block's run of pairs
 across CTAs and merges the per-split lists exactly; ``_split_bounds``
 and ``merge_partial_keys`` are that split and merge in plain torch, for
 the tests.  In the per-lane mode (``nq_lane``) every lane brings query
 blocks of its own, stacked, and each block is answered at its own lane's
 pose only: the batched map loop of a fleet of sensors.  The cull and
-pair-list helpers are the JAX module's jnp code as torch ops.  The
-wrapper counts its launches through
-``graphs.note_launch``, so a launch inside a captured CUDA graph counts
-once per replay.
+pair-list helpers are the JAX module's jnp code as torch ops.
 """
 from __future__ import annotations
 
@@ -33,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import cuda_build, graphs
+from .. import cuda_build
 from .block_sparse import BlockIndex
 
 TB = 128
@@ -43,9 +41,6 @@ K = 5
 BIG = 3.0e38
 MAX_INDEX_BITS = 18
 INIT_KEY = 0x7FFFFFFF
-
-CSRC = cuda_build.CSRC / "block_knn.cu"
-BUILD_DIR = cuda_build.BUILD_DIR
 
 
 def _index_bits(num_cand: int) -> int:
@@ -62,28 +57,8 @@ def _index_bits(num_cand: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: build, bind, launch
+# K1: the launch and its plain twin
 # ---------------------------------------------------------------------------
-
-def build_library() -> dict:
-    """Compile ``csrc/block_knn.cu`` with the shared nvcc command
-    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
-    Returns {"path", "seconds", "log"}."""
-    return cuda_build.build_library(CSRC, "dcreg_block_knn", "K1",
-                                    BUILD_DIR)
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build_library()["path"])
-    fn = lib.dcreg_block_knn_keys
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i,
-                   ctypes.c_float, ctypes.c_float, i, p]
-    fn.restype = i
-    return lib
-
 
 # K1's grid: (nq, nsplit, B) CTAs of 128 threads, one pose lane each.
 # Runs are split until the grid holds about CTAS_PER_SM CTAs for each of
@@ -156,8 +131,8 @@ def _lanes(nq: int, poses, nq_lane: int) -> int:
     return 1
 
 
-def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
-                 index_bits, scale, clamp, nq_lane=0):
+def _launch(src_blocks, tgt, poses, qid, tid, pid, lane_mask, index_bits,
+            scale, clamp, nq_lane=0):
     nq, P = src_blocks.shape[0], qid.shape[0]
     B = _lanes(nq, poses, nq_lane)
     dev = src_blocks.device
@@ -177,24 +152,17 @@ def _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
             raise ValueError("lane_mask is not on the source's device")
         lane_mask = lane_mask.reshape(-1)
         _check(lane_mask, "lane_mask", torch.int32, (P * n_words,))
-    fn = _library().dcreg_block_knn_keys
-    nsplit = _choose_nsplit(
-        nq, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    nsplit = _choose_nsplit(nq, B, K1.sm_count(dev))
     run_start = _run_start(qid, nq)
     out = torch.empty((nq, B, KP, QB), dtype=torch.int32, device=dev)
     partial = None if nsplit == 1 else torch.empty(
         (nq, nsplit, B, K, QB), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(run_start.data_ptr(), tid.data_ptr(), pid.data_ptr(),
-            0 if lane_mask is None else lane_mask.data_ptr(), n_words,
-            src_blocks.data_ptr(), tgt.data_ptr(), poses.data_ptr(),
-            out.data_ptr(), 0 if partial is None else partial.data_ptr(),
-            nq, B, nsplit, index_bits, scale, clamp, nq_lane, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 block_knn kernel launch failed: "
-                           f"cudaError {rc}")
-    graphs.note_launch(block_knn_keys)
-    block_knn_keys.last_grid = {"nsplit": nsplit, "ctas": nq * nsplit * B}
+    K1.launch(run_start.data_ptr(), tid.data_ptr(), pid.data_ptr(),
+              0 if lane_mask is None else lane_mask.data_ptr(), n_words,
+              src_blocks.data_ptr(), tgt.data_ptr(), poses.data_ptr(),
+              out.data_ptr(), 0 if partial is None else partial.data_ptr(),
+              nq, B, nsplit, index_bits, scale, clamp, nq_lane, device=dev,
+              grid={"nsplit": nsplit, "ctas": nq * nsplit * B})
     return out
 
 
@@ -270,25 +238,22 @@ def block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
     return out
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+K1 = cuda_build.Kernel(
+    "K1", "block_knn.cu", "dcreg_block_knn_keys",
+    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+     ctypes.c_float, _I, _P], twin=block_knn_keys_plain, on_card=_launch)
+
+
 def block_knn_keys(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
                    index_bits: int, scale: float, clamp: float,
-                   plain: bool = False, nq_lane: int = 0):
+                   nq_lane: int = 0):
     """K1's boundary: (nq, B, KP, QB) int32 top-5 keys, or (nq, 1, KP,
     QB) in the per-lane mode (``nq_lane`` query blocks per lane).  CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).  ``plain=True`` forces the plain version on the card, for
-    verification against the kernel only."""
-    if src_blocks.device.type == "cpu" or plain:
-        return block_knn_keys_plain(src_blocks, tgt, poses, qid, tid, pid,
-                                    lane_mask, index_bits, scale, clamp,
-                                    nq_lane)
-    return _launch_cuda(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
-                        index_bits, scale, clamp, nq_lane)
-
-
-block_knn_keys.launches = 0
-block_knn_keys.launches_replayed = 0  # those of them made by graph replays
-block_knn_keys.last_grid = None
+    raise)."""
+    return K1(src_blocks, tgt, poses, qid, tid, pid, lane_mask, index_bits,
+              scale, clamp, nq_lane)
 
 
 def key_params(radius: float, index_bits: int):
@@ -302,8 +267,7 @@ def key_params(radius: float, index_bits: int):
 def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
                       radius: float = 1.0, covered=None, lane_mask=None,
                       layout: str = "nk", slot=None, tid_table=None,
-                      max_per_query: int = 0, plain: bool = False,
-                      per_lane: bool = False):
+                      max_per_query: int = 0, per_lane: bool = False):
     """All-lane 5-NN for one ICP iteration.
 
     index: BlockIndex with tb = 128; src_blocks (nq, 3, QB) sorted source,
@@ -343,7 +307,7 @@ def batched_block_knn(index: BlockIndex, src_blocks, poses, qid, tid,
     keys = block_knn_keys(
         src_blocks, index.blocks, poses, i32(qid), i32(tid), i32(pid),
         None if lane_mask is None else i32(lane_mask), ib, scale, clamp,
-        plain=plain, nq_lane=nq_lane)
+        nq_lane=nq_lane)
 
     missing = keys >= (vmax << ib)
     local = torch.bitwise_and(keys, imask)

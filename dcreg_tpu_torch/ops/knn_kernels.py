@@ -22,14 +22,14 @@ the card compares 64-bit keys ``(float bits << 32) | index``: a
 non-negative float orders like its bits, so the keys order exactly like
 (distance, index), with the JAX merge's tie rule (lower index first).
 
-The wrappers are the kernel boundary: a tensor on the card launches the
+The wrappers are the kernel boundary (``K2`` and ``K3``, two
+``cuda_build.Kernel`` of one library): a tensor on the card launches the
 hand-written CUDA kernel (``csrc/knn.cu``, built on first use with nvcc
 and bound with ctypes) or raises; a tensor on the CPU takes the plain
 PyTorch twin, which computes the same keys with the same float operations
 in the same order.  The twins are public (``knn_candidates_plain``,
 ``group_min_plain``) so that the kernels can be checked against them on
-the card.  They count their launches through ``graphs.note_launch``, so
-a launch inside a captured CUDA graph counts once per replay.
+the card.
 
 Both kernels can split the targets.  Where N is too small to fill the
 card, K2 gives each of a query's S warps one slice of every tile of TILE
@@ -43,11 +43,10 @@ shapes and the card's SM count only (``_choose_split``,
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .. import cuda_build, graphs
+from .. import cuda_build
 
 BIG = 3.0e38
 GROUP = 128
@@ -71,26 +70,7 @@ K2_WARPS_PER_SM = 8
 K3_QUERIES_PER_CTA = 128
 K3_CTAS_PER_SM = 8
 
-CSRC = cuda_build.CSRC / "knn.cu"
-BUILD_DIR = cuda_build.BUILD_DIR
-
-
-def build_library() -> dict:
-    """Compile ``csrc/knn.cu`` with the shared nvcc command
-    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
-    Returns {"path", "seconds", "log"}."""
-    return cuda_build.build_library(CSRC, "dcreg_knn", "K2/K3", BUILD_DIR)
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build_library()["path"])
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dcreg_knn_candidates.argtypes = [p, i, p, p, i, i, i, p, p, p]
-    lib.dcreg_knn_candidates.restype = i
-    lib.dcreg_knn_group_min.argtypes = [p, i, p, p, i, i, p, p]
-    lib.dcreg_knn_group_min.restype = i
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _check_inputs(query, target, pen):
@@ -241,21 +221,20 @@ def _launch_candidates(query, target, pen, kk):
     dev = query.device
     val = torch.empty((n, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((n, kk), dtype=torch.int32, device=dev)
-    fn = _library().dcreg_knn_candidates
-    split = _choose_split(
-        n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, kk,
-            split, val.data_ptr(), idx.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 knn kernel launch failed: cudaError {rc}")
-    graphs.note_launch(knn_candidates, kk)
+    split = _choose_split(n, K2.sm_count(dev))
     per_cta = QUERIES_PER_WARP * K2_WARPS // split
-    knn_candidates.last_grid = {
-        "ctas": -(-n // per_cta), "warps_per_cta": K2_WARPS,
-        "queries_per_warp": QUERIES_PER_WARP, "queries_per_cta": per_cta,
-        "split": split, "list_slots": list_slots(kk)}
+    K2.launch(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, kk,
+              split, val.data_ptr(), idx.data_ptr(), device=dev, kk=kk,
+              grid={"ctas": -(-n // per_cta), "warps_per_cta": K2_WARPS,
+                    "queries_per_warp": QUERIES_PER_WARP,
+                    "queries_per_cta": per_cta, "split": split,
+                    "list_slots": list_slots(kk)})
     return val, idx
+
+
+K2 = cuda_build.Kernel("K2", "knn.cu", "dcreg_knn_candidates",
+                       [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+                       twin=knn_candidates_plain, on_card=_launch_candidates)
 
 
 def knn_candidates(query, target, pen, kk: int):
@@ -265,15 +244,7 @@ def knn_candidates(query, target, pen, kk: int):
     raise)."""
     _check_kk(kk)
     _check_inputs(query, target, pen)
-    if query.device.type == "cpu":
-        return knn_candidates_plain(query, target, pen, kk)
-    return _launch_candidates(query, target, pen, kk)
-
-
-knn_candidates.launches = 0
-knn_candidates.launches_replayed = 0  # those of them made by graph replays
-knn_candidates.launches_by_kk = {}     # the same launches, per kk
-knn_candidates.last_grid = None
+    return K2(query, target, pen, kk)
 
 
 # ---------------------------------------------------------------------------
@@ -330,21 +301,19 @@ def _launch_group_min(query, target, pen):
     n, m = query.shape[0], target.shape[0]
     dev = query.device
     out = torch.empty((-(-m // GROUP), n), dtype=torch.float32, device=dev)
-    fn = _library().dcreg_knn_group_min
-    gpc = _choose_group_chunk(
-        n, m, torch.cuda.get_device_properties(dev).multi_processor_count)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, gpc,
-            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 group-min kernel launch failed: cudaError "
-                           f"{rc}")
-    graphs.note_launch(group_min)
+    gpc = _choose_group_chunk(n, m, K3.sm_count(dev))
     chunks = -(-out.shape[0] // gpc)
-    group_min.last_grid = {
-        "ctas": -(-n // K3_QUERIES_PER_CTA) * chunks, "chunks": chunks,
-        "groups_per_chunk": gpc, "queries_per_cta": K3_QUERIES_PER_CTA}
+    K3.launch(query.data_ptr(), n, target.data_ptr(), pen.data_ptr(), m, gpc,
+              out.data_ptr(), device=dev,
+              grid={"ctas": -(-n // K3_QUERIES_PER_CTA) * chunks,
+                    "chunks": chunks, "groups_per_chunk": gpc,
+                    "queries_per_cta": K3_QUERIES_PER_CTA})
     return out
+
+
+K3 = cuda_build.Kernel("K3", "knn.cu", "dcreg_knn_group_min",
+                       [_P, _I, _P, _P, _I, _I, _P, _P],
+                       twin=group_min_plain, on_card=_launch_group_min)
 
 
 def group_min(query, target, pen):
@@ -353,14 +322,7 @@ def group_min(query, target, pen):
     _check_inputs(query, target, pen)
     if target.shape[0] == 0:
         raise ValueError("group_min needs at least one target")
-    if query.device.type == "cpu":
-        return group_min_plain(query, target, pen)
-    return _launch_group_min(query, target, pen)
-
-
-group_min.launches = 0
-group_min.launches_replayed = 0  # those of them made by graph replays
-group_min.last_grid = None
+    return K3(query, target, pen)
 
 
 # ---------------------------------------------------------------------------

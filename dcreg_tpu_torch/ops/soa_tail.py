@@ -7,18 +7,15 @@ shaped (B, N) / (B, k, N) with the point axis minor.  The two reductions
 to H and g are f32 einsums, which stay full f32 because the port keeps
 TF32 off (``dcreg_tpu_torch.utils.precise``).
 
-The plane fit, ``_plane_fit``, is a kernel boundary: a CUDA tensor
-launches the hand-written kernel plane_fit (``csrc/plane_fit.cu``, built
-on first use with nvcc and bound with ctypes; one launch where the plain
-form runs 444 small ops), a CPU tensor takes the plain PyTorch twin
-``_plane_fit_plain``.  The wrapper counts its launches through
-``graphs.note_launch``, so a launch inside a captured CUDA graph counts
-once per replay.
+The plane fit, ``_plane_fit``, is a kernel boundary (``PLANE_FIT``, a
+``cuda_build.Kernel``): a CUDA tensor launches the hand-written kernel
+plane_fit (``csrc/plane_fit.cu``, built on first use with nvcc and bound
+with ctypes; one launch where the plain form runs 444 small ops), a CPU
+tensor takes the plain PyTorch twin ``_plane_fit_plain``.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -208,29 +205,11 @@ def _plane_fit_plain(target_xyz, idx_kn, params: CorrespondenceParams):
 
 
 # ---------------------------------------------------------------------------
-# plane_fit: build, bind, launch
+# plane_fit: the launch
 # ---------------------------------------------------------------------------
 
-CSRC = cuda_build.CSRC / "plane_fit.cu"
 # the kernel's cap on k, its K_MAX: the neighbours live in registers
 K_MAX = 16
-
-
-def build_library() -> dict:
-    """Compile ``csrc/plane_fit.cu`` with the shared nvcc command
-    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
-    Returns {"path", "seconds", "log"}."""
-    return cuda_build.build_library(CSRC, "dcreg_plane_fit", "plane_fit")
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build_library()["path"])
-    fn = lib.dcreg_plane_fit
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, f, f, f, p]
-    fn.restype = i
-    return lib
 
 
 def kernel_operands(target_xyz, idx_kn):
@@ -252,7 +231,7 @@ def kernel_operands(target_xyz, idx_kn):
     return B, k, N, [*target_xyz.stride(), *idx_kn.stride()]
 
 
-def _launch_cuda(target_xyz, idx_kn, params: CorrespondenceParams):
+def _launch(target_xyz, idx_kn, params: CorrespondenceParams):
     B, k, N, strides = kernel_operands(target_xyz, idx_kn)
     for name, t, want in (("target_xyz", target_xyz, torch.float32),
                           ("idx_kn", idx_kn, torch.int32)):
@@ -273,16 +252,19 @@ def _launch_cuda(target_xyz, idx_kn, params: CorrespondenceParams):
         if B * N else 0.0
     inv_k = float(np.float32(1.0) / np.float32(k))
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().dcreg_plane_fit(
+    PLANE_FIT.launch(
         target_xyz.data_ptr(), idx_kn.data_ptr(), c_strides, len(strides),
         nox.data_ptr(), noy.data_ptr(), noz.data_ptr(), d_off.data_ptr(),
         fit_ok.data_ptr(), plane_ok.data_ptr(), B, k, N, mean_factor, inv_k,
-        params.max_plane_thickness ** 2, stream)
-    if rc != 0:
-        raise RuntimeError(f"plane_fit kernel launch failed: cudaError {rc}")
-    graphs.note_launch(_plane_fit)
+        params.max_plane_thickness ** 2, device=dev)
     return nox, noy, noz, d_off, fit_ok, plane_ok
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PLANE_FIT = cuda_build.Kernel(
+    "plane_fit", "plane_fit.cu", "dcreg_plane_fit",
+    [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    twin=_plane_fit_plain, on_card=_launch)
 
 
 def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
@@ -291,13 +273,7 @@ def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
     kernel, float32 target and int32 ids as the loop hands them (or
     raise).  Returns (nox, noy, noz, d_off, fit_ok, plane_ok), each
     (B, N)."""
-    if target_xyz.device.type == "cpu":
-        return _plane_fit_plain(target_xyz, idx_kn, params)
-    return _launch_cuda(target_xyz, idx_kn, params)
-
-
-_plane_fit.launches = 0
-_plane_fit.launches_replayed = 0  # those of them made by graph replays
+    return PLANE_FIT(target_xyz, idx_kn, params)
 
 
 def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,

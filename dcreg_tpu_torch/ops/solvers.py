@@ -7,24 +7,21 @@ converged.  The handling method is a static enum; the JAX module's
 traced-int-code dispatch (one XLA compile for the whole method matrix)
 has no counterpart here.  Batched over leading dimensions.
 
-``solve_pcg_fast``, the map loop's solve, is a kernel boundary: a CUDA
-tensor launches the hand-written kernel pcg6 (``csrc/pcg6.cu``, built on
-first use with nvcc and bound with ctypes; one launch where the plain
-form runs 637 small ops), a CPU tensor takes the plain PyTorch twin
-``solve_pcg_fast_plain``.  The wrapper counts its launches through
-``graphs.note_launch``, so a launch inside a captured CUDA graph counts
-once per replay.
+``solve_pcg_fast``, the map loop's solve, is a kernel boundary
+(``PCG6``, a ``cuda_build.Kernel``): a CUDA tensor launches the
+hand-written kernel pcg6 (``csrc/pcg6.cu``, built on first use with nvcc
+and bound with ctypes; one launch where the plain form runs 637 small
+ops), a CPU tensor takes the plain PyTorch twin ``solve_pcg_fast_plain``.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from .. import cuda_build, graphs
+from .. import cuda_build
 from . import linalg
 from .degeneracy import (DegeneracyAnalysis, DegeneracyThresholds,
                          HandlingMethod, _block_diag, _eye6_like,
@@ -175,10 +172,8 @@ def solve_pcg_fast_plain(H, g, analysis: DegeneracyAnalysis,
 
 
 # ---------------------------------------------------------------------------
-# pcg6: build, bind, launch
+# pcg6: the launch
 # ---------------------------------------------------------------------------
-
-CSRC = cuda_build.CSRC / "pcg6.cu"
 
 # the kernel's operands in its order: (analysis field, or H and g;
 # trailing shape); every one carries H's leading batch dimensions
@@ -186,24 +181,6 @@ _OPERANDS = (("H", (6, 6)), ("g", (6,)), ("lambda_schur_rot", (3,)),
              ("lambda_schur_trans", (3,)), ("V_schur_rot", (3, 3)),
              ("V_schur_trans", (3, 3)), ("schur_valid", ()),
              ("is_degenerate", ()))
-
-
-def build_library() -> dict:
-    """Compile ``csrc/pcg6.cu`` with the shared nvcc command
-    (``cuda_build``) unless ``_build/<source hash>/`` already holds it.
-    Returns {"path", "seconds", "log"}."""
-    return cuda_build.build_library(CSRC, "dcreg_pcg6", "pcg6")
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build_library()["path"])
-    fn = lib.dcreg_pcg6
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, i, i,
-                   ctypes.c_float, ctypes.c_float, p]
-    fn.restype = i
-    return lib
 
 
 def kernel_operands(H, g, analysis: DegeneracyAnalysis):
@@ -226,8 +203,8 @@ def kernel_operands(H, g, analysis: DegeneracyAnalysis):
     return nb, views, [s for v in views for s in v.stride()]
 
 
-def _launch_cuda(H, g, analysis: DegeneracyAnalysis,
-                 thresholds: DegeneracyThresholds):
+def _launch(H, g, analysis: DegeneracyAnalysis,
+            thresholds: DegeneracyThresholds):
     dev = H.device
     if dev.type != "cuda":
         raise ValueError(f"pcg6 runs on a CUDA device, got {dev}")
@@ -247,19 +224,23 @@ def _launch_cuda(H, g, analysis: DegeneracyAnalysis,
     resid = torch.empty(batch, **f32)
     cond = torch.empty(batch, **f32)
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().dcreg_pcg6(
-        *(v.data_ptr() for v in views), c_strides, len(strides),
-        x.data_ptr(), P.data_ptr(), W.data_ptr(), iters.data_ptr(),
-        resid.data_ptr(), cond.data_ptr(), nb, int(thresholds.pcg_max_iter),
-        float(thresholds.pcg_tolerance), float(thresholds.kappa_target),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"pcg6 kernel launch failed: cudaError {rc}")
-    graphs.note_launch(solve_pcg_fast)
+    PCG6.launch(*(v.data_ptr() for v in views), c_strides, len(strides),
+                x.data_ptr(), P.data_ptr(), W.data_ptr(), iters.data_ptr(),
+                resid.data_ptr(), cond.data_ptr(), nb,
+                int(thresholds.pcg_max_iter),
+                float(thresholds.pcg_tolerance),
+                float(thresholds.kappa_target), device=dev)
     return x, SolveInfo(P_preconditioner=P, W_adaptive=W,
                         pcg_iterations=iters, pcg_residual=resid,
                         cond_PH=cond)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PCG6 = cuda_build.Kernel(
+    "pcg6", "pcg6.cu", "dcreg_pcg6",
+    [_P] * 9 + [_I] + [_P] * 6 + [_I, _I, ctypes.c_float, ctypes.c_float,
+                                  _P],
+    twin=solve_pcg_fast_plain, on_card=_launch)
 
 
 def solve_pcg_fast(H, g, analysis: DegeneracyAnalysis,
@@ -268,13 +249,7 @@ def solve_pcg_fast(H, g, analysis: DegeneracyAnalysis,
     pcg6): CPU tensors take the plain twin ``solve_pcg_fast_plain``; CUDA
     tensors launch the kernel, float32 as the port runs on the card (or
     raise)."""
-    if H.device.type == "cpu":
-        return solve_pcg_fast_plain(H, g, analysis, thresholds)
-    return _launch_cuda(H, g, analysis, thresholds)
-
-
-solve_pcg_fast.launches = 0
-solve_pcg_fast.launches_replayed = 0  # those of them made by graph replays
+    return PCG6(H, g, analysis, thresholds)
 
 
 def _solve_static(H, g, method: HandlingMethod,

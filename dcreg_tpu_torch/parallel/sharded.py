@@ -478,11 +478,6 @@ class ShardedLoop:
         S.put("neff32", S.neff.to(torch.int32))
         S.put("ovf32", S.ovf.to(torch.int32))
 
-    def parts(self, S) -> dict:
-        return {"prologue": lambda: self.prologue(S),
-                "step": lambda: self.step(S),
-                "epilogue": lambda: self.epilogue(S)}
-
     def result(self, S) -> "ShardedICPResult":
         return ShardedICPResult(
             R=S.R, t=S.t, converged=S.conv, aborted=S.abt,

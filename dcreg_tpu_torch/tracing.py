@@ -12,9 +12,6 @@ that split a profile of the loops by the program's own modules.
   with the call's sequence number and args derived from the call's
   arguments (``odometry.call`` on ``run_odometry_map``;
   ``odometry.fleet_call`` on ``run_odometry_fleet``, with ``sensors``).
-* ``FLEET`` counts the fleet's ticks from what the host reads anyway:
-  ``run_odometry_fleet`` calls, lanes, step replays, the lanes'
-  iterations and the lanes that aborted or overflowed.
 * ``replay(graph, **args)`` replays a captured graph under a
   ``graphs.replay`` span; inside ``record()`` two CUDA events of the
   recorder's pool bracket it on the replay's stream.
@@ -31,7 +28,6 @@ from __future__ import annotations
 
 import bisect
 import contextlib
-import dataclasses
 import functools
 import itertools
 import time
@@ -114,28 +110,6 @@ def calls(name: str, **derived):
                 return fn(*args, **kwargs)
         return spanned
     return wrap
-
-
-@dataclasses.dataclass
-class FleetCounters:
-    """A fleet's ticks (``run_odometry_fleet``), counted on the host from
-    the loop's own reads of its step flag: no read of their own."""
-    calls: int = 0
-    lanes: int = 0           # sensors, summed over calls
-    steps: int = 0           # step replays
-    lane_steps: int = 0      # the lanes' ICP iterations
-    failed: int = 0          # lanes aborted or over their pair list
-
-    def add(self, lanes: int, steps: int, lane_steps: int,
-            failed: int) -> None:
-        self.calls += 1
-        self.lanes += lanes
-        self.steps += steps
-        self.lane_steps += lane_steps
-        self.failed += failed
-
-
-FLEET = FleetCounters()
 
 
 def replay(graph, **args) -> None:

@@ -42,7 +42,7 @@ def _split_parts(src_blocks, tgt, poses, qid, tid, pid, lane_mask,
     return torch.stack(parts, dim=1)
 
 
-def _split_merge_keys(*args, plain=False, nsplit=1, nq_lane=0):
+def _split_merge_keys(*args, nsplit=1, nq_lane=0):
     """K1's structure in plain torch: split, top-5 per split, merge (the
     lanes' own mode, ``nq_lane``, is not split here)."""
     assert nq_lane == 0

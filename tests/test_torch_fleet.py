@@ -142,7 +142,6 @@ def rot_angle(Ra, Rb):
 
 
 def test_each_lane_is_its_own_single_sensor_loop(fleet, single):
-    before = tracing.FLEET.lane_steps
     differ = 0
     for k, (_, _, res) in enumerate(fleet):
         for lane, one in enumerate(single):
@@ -154,25 +153,17 @@ def test_each_lane_is_its_own_single_sensor_loop(fleet, single):
                 assert bool(getattr(res, name)[lane]) \
                     == bool(getattr(one, name)[k]), name
     assert differ <= 1
-    assert tracing.FLEET.lane_steps == before
     assert all(r.poses.shape == (len(STARTS), 4, 4) for _, _, r in fleet)
 
 
 def test_fleet_counters_come_from_the_step_reads(scene):
-    c0 = tracing.FleetCounters(**vars(tracing.FLEET))
     reads0 = graphs.STATS.host_reads
     ticks = fleet_ticks(scene)
     it = torch.stack([r.iterations for _, _, r in ticks])
-    c = tracing.FLEET
-    assert c.calls - c0.calls == TICKS
-    assert c.lanes - c0.lanes == TICKS * len(STARTS)
-    # a tick replays its step until its slowest lane is done, one read each
-    assert c.steps - c0.steps == int(it.max(dim=1).values.sum())
-    assert graphs.STATS.host_reads - reads0 == c.steps - c0.steps
-    assert c.lane_steps - c0.lane_steps == int(it.sum())
-    bad = sum(int((r.aborted | (r.pair_overflow > 0)).sum())
-              for _, _, r in ticks)
-    assert c.failed - c0.failed == bad
+    assert it.shape == (TICKS, len(STARTS))
+    # a tick runs its step until its slowest lane is done, one read each
+    assert graphs.STATS.host_reads - reads0 == int(
+        it.max(dim=1).values.sum())
 
 
 def plane_gap(T, out):
@@ -436,12 +427,11 @@ def test_k1_per_lane_kernel_matches_its_twin(cuda_scene):
             i32(a["qid"]), i32(a["tid"]), i32(a["kw"]["slot"]), None, ib,
             scale, clamp)
     keys = tk.block_knn_keys(*args, nq_lane=a["nq"])
-    twin = tk.block_knn_keys(*args, plain=True, nq_lane=a["nq"])
+    twin = tk.block_knn_keys_plain(*args, nq_lane=a["nq"])
     assert torch.equal(keys, twin)
     # with the live mask of a reused list: every second pair dropped
     mask = i32((torch.arange(a["qid"].numel(), device=a["qid"].device)
                 % 2)[:, None])
     args = args[:6] + (mask,) + args[7:]
     assert torch.equal(tk.block_knn_keys(*args, nq_lane=a["nq"]),
-                       tk.block_knn_keys(*args, plain=True,
-                                         nq_lane=a["nq"]))
+                       tk.block_knn_keys_plain(*args, nq_lane=a["nq"]))

@@ -26,7 +26,7 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from dcreg_tpu_torch import graphs
+from dcreg_tpu_torch import cuda_build, graphs
 from dcreg_tpu_torch.models import icp_batch as tib
 from dcreg_tpu_torch.models import odometry as todo
 from dcreg_tpu_torch.models.icp import (ICPParams, covariance_from_H,
@@ -195,7 +195,7 @@ class HostSyncGuard(TorchDispatchMode):
 @pytest.fixture
 def guard(monkeypatch):
     g = HostSyncGuard()
-    plain = tk.block_knn_keys_plain
+    plain = tk.K1.twin
 
     def exempt_plain(*args, **kwargs):
         g.exempt += 1
@@ -204,7 +204,7 @@ def guard(monkeypatch):
         finally:
             g.exempt -= 1
 
-    monkeypatch.setattr(tk, "block_knn_keys_plain", exempt_plain)
+    monkeypatch.setattr(tk.K1, "twin", exempt_plain)
     return g
 
 
@@ -231,8 +231,8 @@ def _drive_guarded(guard, parts, state, max_iterations):
 @pytest.mark.parametrize("mode", ["reuse_B1", "map_B2", "block_B2"])
 def test_batch_parts_do_not_read_the_host(scene, guard, mode):
     loop, state = _loop(scene[mode], max_iterations=3)
-    _warm_up(loop.parts(state))
-    _drive_guarded(guard, loop.parts(state), state, 3)
+    _warm_up(graphs.parts(loop, state))
+    _drive_guarded(guard, graphs.parts(loop, state), state, 3)
     assert guard.seen["aten.where"] > 0
     assert int(state.it) >= 1
 
@@ -280,7 +280,7 @@ def test_map_frame_does_not_read_the_host(scene, guard, name, det, hand,
     mloop = todo.MapLoop(loop, True, fast, todo.ROW_BLOCK)
     state = graphs.State()
     mloop.load(state, frames[0], _f32(inp["T0"]), _f32(inp["T_prev"]))
-    parts = mloop.parts(state)
+    parts = graphs.parts(mloop, state)
     _warm_up(parts)
     mloop.load(state, frames[0], _f32(inp["T0"]), _f32(inp["T_prev"]))
     for f in range(frames.shape[0]):
@@ -447,11 +447,7 @@ def test_graph_true_on_the_cpu_raises(scene):
                               scene["world"], num_supers=2,
                               max_per_query=4, num_pairs=64, device="cpu",
                               graph=True)
-    with pytest.raises(ValueError, match="plain K1"):
-        graphs.use_graphs(torch.device("cuda"), True, plain_knn=True)
     assert graphs.use_graphs(torch.device("cuda"), None) is True
-    assert graphs.use_graphs(torch.device("cuda"), None,
-                             plain_knn=True) is False
     assert graphs.use_graphs(torch.device("cpu"), None) is False
     # graph=False is the eager path: the same bits
     a, b = _run(case), _run(case, graph=False)
@@ -534,11 +530,8 @@ def test_graph_cache_is_a_bounded_lru():
 
 
 def test_replays_count_the_launches_their_capture_tallied():
-    def wrapper():
-        pass
-
-    wrapper.launches = 0
-    wrapper.launches_by_kk = {}
+    wrapper = cuda_build.Kernel("test", "test.cu", "test", [], twin=None,
+                                on_card=None)
     tally = collections.Counter()
     graphs._RECORDING.append(tally)
     try:
@@ -562,8 +555,10 @@ def test_replays_count_the_launches_their_capture_tallied():
     g("step")
     assert FakeGraph.replays == 2
     assert wrapper.launches == 6 and wrapper.launches_by_kk == {10: 4}
+    assert wrapper.launches_replayed == 6
     graphs.note_launch(wrapper, 10)        # outside a capture: counted
     assert wrapper.launches == 7 and wrapper.launches_by_kk == {10: 5}
+    assert wrapper.launches_replayed == 6
 
 
 def test_state_slots_keep_their_storage():

@@ -193,15 +193,14 @@ def _exempt(guard, fn):
 @pytest.fixture
 def guard(monkeypatch):
     g = HostSyncGuard()
-    monkeypatch.setattr(kn, "knn_candidates_plain",
-                        _exempt(g, kn.knn_candidates_plain))
+    monkeypatch.setattr(kn.K2, "twin", _exempt(g, kn.K2.twin))
     for name in ("all_reduce", "all_gather_into_tensor"):
         monkeypatch.setattr(tsh.dist, name, _exempt(g, getattr(dist, name)))
     return g
 
 
 def _guarded_drive(guard, loop, state, max_iterations):
-    parts = loop.parts(state)
+    parts = graphs.parts(loop, state)
     for fn in parts.values():      # the warm-up before a capture
         fn()
 
@@ -485,7 +484,7 @@ def _same_result(out, ref):
     ("XICP-OP", "grid")])
 def test_xicp_steps_match_the_seed_loop(pair, row, backend):
     loop, state = _engine_loop(pair, "xicp", backend, row)
-    graphs.drive(graphs.run_eager(loop.parts(state)), state,
+    graphs.drive(graphs.run_eager(graphs.parts(loop, state)), state,
                  PARAMS.max_iterations)
     cloud = pair["cloud"]
     ref, H_ref = _seed_xicp(cloud, cloud, pair["R0"], pair["t0"], *ROWS[row],
@@ -498,7 +497,7 @@ def test_xicp_steps_match_the_seed_loop(pair, row, backend):
 @pytest.mark.parametrize("backend", ["brute", "grid"])
 def test_o3d_steps_match_the_seed_loop(pair, backend):
     loop, state = _engine_loop(pair, "o3d", backend)
-    graphs.drive(graphs.run_eager(loop.parts(state)), state,
+    graphs.drive(graphs.run_eager(graphs.parts(loop, state)), state,
                  PARAMS.max_iterations)
     cloud = pair["cloud"]
     ref, H_ref = _seed_o3d(cloud, cloud, pair["R0"], pair["t0"], PARAMS,
@@ -511,7 +510,7 @@ def test_o3d_steps_match_the_seed_loop(pair, backend):
 @pytest.mark.parametrize("backend", ["brute", "grid"])
 def test_superloc_parts_match_the_seed(pair, backend):
     loop, state = _engine_loop(pair, "superloc", backend)
-    graphs.drive(graphs.run_eager(loop.parts(state)), state, 0)
+    graphs.drive(graphs.run_eager(graphs.parts(loop, state)), state, 0)
     cloud = pair["cloud"]
     out, info = loop.result(state)
     ref, ref_info = _seed_superloc(cloud, cloud, pair["R0"], pair["t0"],

@@ -149,7 +149,7 @@ def _voxel_loop(voxel, row, trips, cv):
 @pytest.fixture
 def guard(monkeypatch):
     g = HostSyncGuard()
-    plain = kn.knn_candidates_plain
+    plain = kn.K2.twin
 
     def exempt_plain(*args, **kwargs):
         g.exempt += 1
@@ -158,7 +158,7 @@ def guard(monkeypatch):
         finally:
             g.exempt -= 1
 
-    monkeypatch.setattr(kn, "knn_candidates_plain", exempt_plain)
+    monkeypatch.setattr(kn.K2, "twin", exempt_plain)
     return g
 
 
@@ -182,7 +182,7 @@ def _guarded(guard, parts):
 def test_pair_parts_do_not_read_the_host(pair, guard, backend, row):
     loop, state = _pair_loop(pair, ticp.PairLoop, backend, row,
                              PARAMS._replace(max_iterations=3))
-    parts = loop.parts(state)
+    parts = graphs.parts(loop, state)
     _warm_up(parts)
     graphs.drive(_guarded(guard, parts), state, 3)
     assert guard.seen["aten.where"] > 0 and int(state.k) >= 1
@@ -195,7 +195,7 @@ def test_pair_parts_do_not_read_the_host(pair, guard, backend, row):
 def test_euler_parts_do_not_read_the_host(pair, guard, backend, row):
     loop, state = _pair_loop(pair, teul.EulerLoop, backend, row,
                              PARAMS._replace(max_iterations=3))
-    parts = loop.parts(state)
+    parts = graphs.parts(loop, state)
     _warm_up(parts)
     graphs.drive(_guarded(guard, parts), state, 3)
     assert int(state.k) >= 1
@@ -205,7 +205,7 @@ def test_euler_parts_do_not_read_the_host(pair, guard, backend, row):
                          ids=[c[0] for c in VOXEL_CASES])
 def test_voxel_parts_do_not_read_the_host(voxel, guard, row, trips, cv):
     loop, state, params = _voxel_loop(voxel, row, trips, cv)
-    parts = loop.parts(state)
+    parts = graphs.parts(loop, state)
     _warm_up(parts)
     loop.load(state, voxel["frames"][0], voxel["valid"][0], voxel["T0"])
     for f in range(2):
@@ -369,7 +369,7 @@ def _same_result(out, ref, H_last, H_ref):
 def test_pair_steps_match_the_seed_loop(pair, backend, row):
     params = PARAMS._replace(full_telemetry=backend != "block")
     loop, state = _pair_loop(pair, ticp.PairLoop, backend, row, params)
-    graphs.drive(graphs.run_eager(loop.parts(state)), state,
+    graphs.drive(graphs.run_eager(graphs.parts(loop, state)), state,
                  params.max_iterations)
     out = loop.result(state)
     H_last = state.get_tuple("hist", Hist).H[max(int(state.k) - 1, 0)]
@@ -384,7 +384,7 @@ def test_pair_steps_match_the_seed_loop(pair, backend, row):
                          ids=[f"{b}-{r}" for b, r in EULER_CASES])
 def test_euler_steps_match_the_seed_loop(pair, backend, row):
     loop, state = _pair_loop(pair, teul.EulerLoop, backend, row)
-    graphs.drive(graphs.run_eager(loop.parts(state)), state,
+    graphs.drive(graphs.run_eager(graphs.parts(loop, state)), state,
                  PARAMS.max_iterations)
     out = loop.result(state)
     H_last = state.get_tuple("hist", teul.EulerHist).H[

@@ -1,6 +1,8 @@
 """Guards of the port: no JAX anywhere in it, no silent CPU fallback, and
-a K1 wrapper that raises rather than falls back when the kernel cannot be
-built."""
+the boundary of its hand-written kernels (``cuda_build.Kernel``): a
+tensor that is not on the CPU raises rather than falls back when the
+kernel cannot be built, and reaches the plain twin only on the twin
+route."""
 import ast
 import pathlib
 import subprocess
@@ -11,6 +13,7 @@ import pytest
 from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
+from dcreg_tpu_torch import cuda_build
 from dcreg_tpu_torch.models import icp_batch as tib
 from dcreg_tpu_torch.models import odometry as todo
 from dcreg_tpu_torch.models.icp import ICPParams
@@ -104,35 +107,129 @@ def _device_inputs(device):
             e(P, dt=torch.int32), e(P, dt=torch.int32))
 
 
-def test_k1_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
-    """A tensor that is not on the CPU never reaches the plain version:
-    with no kernel library to be had, the wrapper raises.  ("meta"
-    tensors stand in for CUDA tensors on a machine without a card.)"""
-    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(tk.cuda_build.shutil, "which", lambda name: None)
-    monkeypatch.setattr(tk.cuda_build.os.path, "exists", lambda p: False)
-    tk._library.cache_clear()
-    before = tk.block_knn_keys.launches
-    args = _device_inputs("meta")
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            tk.block_knn_keys(*args, None, 11, 1.0, 1.1)
-        monkeypatch.setattr(tk, "CSRC", tmp_path / "missing.cu")
-        with pytest.raises(FileNotFoundError):
-            tk.block_knn_keys(*args, None, 11, 1.0, 1.1)
-        # argument checks run before any build
+KERNELS = ("K1", "K2", "K3", "pcg6", "plane_fit")
+NO_NVCC = (RuntimeError, "nvcc not found")
+
+
+def _boundary(label, device):
+    """(``label``'s Kernel, calls of its boundary on ``device``: the
+    boundary itself first, then the searches over it, each with the
+    error it raises on a "meta" tensor with no nvcc, whether it gets as
+    far as the build).  "meta" tensors stand in for CUDA tensors on a
+    machine without a card."""
+    from dcreg_tpu_torch.ops import knn as tknn
+    from dcreg_tpu_torch.ops import knn_kernels as tkk
+    from dcreg_tpu_torch.ops import soa_tail, solvers
+    if label == "K1":
+        args = _device_inputs(device)
         bad = list(args)
         bad[2] = bad[2].to(torch.float64)
-        with pytest.raises(TypeError):
-            tk.block_knn_keys(*bad, None, 11, 1.0, 1.1)
-    finally:
-        tk._library.cache_clear()
-    assert tk.block_knn_keys.launches == before
-    # the same call on CPU tensors takes the plain version and counts no
-    # kernel launch
-    keys = tk.block_knn_keys(*_device_inputs("cpu"), None, 11, 1.0, 1.1)
-    assert keys.shape == (2, 3, 8, 128)
-    assert tk.block_knn_keys.launches == before
+        return tk.K1, [
+            (lambda: tk.block_knn_keys(*args, None, 11, 1.0, 1.1), NO_NVCC),
+            # argument checks run before any build
+            (lambda: tk.block_knn_keys(*bad, None, 11, 1.0, 1.1),
+             (TypeError, "float32"))]
+    q = torch.zeros((20, 3), device=device)
+    t = torch.rand((300, 3)).to(device)
+    pen = torch.zeros(300, device=device)
+    if label == "K2":
+        return tkk.K2, [
+            (lambda: tkk.knn_candidates(q, t, pen, 10), NO_NVCC),
+            (lambda: tkk.knn(q, t, k=5), NO_NVCC),
+            (lambda: tknn.nn1(q, t), NO_NVCC),
+            # f64 on a device other than the CPU raises before any search
+            (lambda: tknn.knn(q.double(), t.double(), k=5),
+             (ValueError, "CPU only"))]
+    if label == "K3":
+        return tkk.K3, [(lambda: tkk.group_min(q, t, pen), NO_NVCC),
+                        (lambda: tkk.knn_grouped(q, t, k=5), NO_NVCC)]
+    if label == "pcg6":
+        H = torch.eye(6).expand(2, 6, 6) * torch.arange(1.0, 7.0)
+        a = tdeg.analyze(H, tdeg.DetectionMethod.SCHUR_CONDITION_NUMBER,
+                         tdeg.DegeneracyThresholds(), fast=True)
+        H, g = H.to(device), torch.ones((2, 6), device=device)
+        a = tdeg.DegeneracyAnalysis(*[f.to(device) for f in a])
+        return solvers.PCG6, [
+            (lambda: solvers.solve_pcg_fast(H, g, a,
+                                            tdeg.DegeneracyThresholds()),
+             (ValueError, "CUDA device"))]
+    idx = torch.randint(0, 300, (2, 5, 20), dtype=torch.int32).to(device)
+    params = soa_tail.CorrespondenceParams()
+    return soa_tail.PLANE_FIT, [
+        (lambda: soa_tail._plane_fit(t, idx, params),
+         (ValueError, "CUDA device"))]
+
+
+def _counts(kernel):
+    return (kernel.launches, kernel.launches_replayed,
+            dict(kernel.launches_by_kk), kernel.last_grid)
+
+
+def _no_nvcc(monkeypatch, tmp_path, kernel):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(kernel, "_fn", None)
+
+
+@pytest.mark.parametrize("label", KERNELS)
+def test_card_tensors_raise_instead_of_falling_back(label, monkeypatch,
+                                                    tmp_path):
+    """A tensor that is not on the CPU never reaches the plain twin: with
+    no kernel library to be had, the boundary raises, and counts no
+    launch; a watcher sees the operands first.  The same call on CPU
+    tensors takes the twin and counts nothing."""
+    kernel, calls = _boundary(label, "meta")
+    _no_nvcc(monkeypatch, tmp_path, kernel)
+    before, seen = _counts(kernel), []
+    with kernel.watching(lambda *ops: seen.append(ops)):
+        for call, (err, match) in calls:
+            with pytest.raises(err, match=match):
+                call()
+    assert seen and all(ops[0].device.type == "meta" for ops in seen)
+    if calls[0][1] is NO_NVCC:
+        monkeypatch.setattr(kernel, "source", tmp_path / "missing.cu")
+        with pytest.raises(FileNotFoundError):
+            calls[0][0]()
+    assert kernel._fn is None and not (tmp_path / "build").exists()
+    assert _counts(kernel) == before
+    _, cpu_calls = _boundary(label, "cpu")
+    cpu_calls[0][0]()
+    assert _counts(kernel) == before
+
+
+@pytest.mark.parametrize("label", KERNELS)
+def test_the_twin_route_takes_card_tensors_to_the_twin(label, monkeypatch,
+                                                       tmp_path):
+    """On the twin route (``Kernel.through_the_twin``) a tensor that is
+    not on the CPU reaches the plain twin, builds nothing and counts no
+    launch; after it the boundary launches (or raises) again."""
+    kernel, calls = _boundary(label, "meta")
+    _no_nvcc(monkeypatch, tmp_path, kernel)
+    before, seen = _counts(kernel), []
+
+    def twin(*ops):
+        seen.append(ops)
+        return "twin"
+
+    monkeypatch.setattr(kernel, "twin", twin)
+    with kernel.through_the_twin():
+        assert calls[0][0]() == "twin"
+    assert len(seen) == 1 and seen[0][0].device.type == "meta"
+    assert kernel._fn is None and not (tmp_path / "build").exists()
+    assert _counts(kernel) == before
+    err, match = calls[0][1]
+    with pytest.raises(err, match=match):
+        calls[0][0]()
+
+
+def test_every_cuda_source_has_a_kernel():
+    """``cuda_build.kernels()`` finds each kernel declared in the ops
+    modules, and every CUDA source has one."""
+    ks = cuda_build.kernels()
+    assert sorted(k.label for k in ks) == sorted(KERNELS)
+    assert {k.source.name for k in ks} == {
+        p.name for p in cuda_build.CSRC.glob("*.cu")}
 
 
 def test_pair_entry_points_raise_without_gpu(monkeypatch, tmp_path):
@@ -168,40 +265,6 @@ def test_pair_entry_points_raise_without_gpu(monkeypatch, tmp_path):
                                  device="cpu")
     assert out.R.device.type == "cpu"
     assert TestRunner(cfg, device="cpu").device.type == "cpu"
-
-
-def test_k2_k3_wrappers_raise_instead_of_falling_back(monkeypatch,
-                                                      tmp_path):
-    """A non-CPU tensor never reaches the K2 or K3 plain twin: with no
-    kernel library to be had, knn and knn_grouped raise and no launch is
-    counted ("meta" tensors stand in for CUDA tensors)."""
-    from dcreg_tpu_torch.ops import knn as tknn
-    from dcreg_tpu_torch.ops import knn_kernels as tkk
-    monkeypatch.setattr(tkk, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(tkk.cuda_build.shutil, "which", lambda name: None)
-    monkeypatch.setattr(tkk.cuda_build.os.path, "exists", lambda p: False)
-    tkk._library.cache_clear()
-    k2, k3 = tkk.knn_candidates.launches, tkk.group_min.launches
-    q = torch.zeros((20, 3), device="meta")
-    t = torch.zeros((300, 3), device="meta")
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            tkk.knn(q, t, k=5)
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            tkk.knn_grouped(q, t, k=5)
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            tknn.nn1(q, t)
-        # f64 on a device other than the CPU raises before any search
-        with pytest.raises(ValueError, match="CPU only"):
-            tknn.knn(q.double(), t.double(), k=5)
-    finally:
-        tkk._library.cache_clear()
-    assert (tkk.knn_candidates.launches, tkk.group_min.launches) == (k2, k3)
-    # the same calls on CPU tensors take the plain twins, count nothing
-    d, i = tkk.knn(torch.zeros((20, 3)), torch.rand((300, 3)), k=5)
-    assert d.shape == (20, 5)
-    tkk.knn_grouped(torch.zeros((20, 3)), torch.rand((300, 3)), k=5)
-    assert (tkk.knn_candidates.launches, tkk.group_min.launches) == (k2, k3)
 
 
 def test_test_runner_dtype_follows_device(monkeypatch):

@@ -162,10 +162,11 @@ def test_cpu_routes_to_the_plain_twin(kind, shape, monkeypatch):
         calls.append(args)
         return plain(*args)
 
-    monkeypatch.setattr(solvers, "solve_pcg_fast_plain", spy)
+    monkeypatch.setattr(solvers.PCG6, "twin", spy)
+    before = solvers.PCG6.launches
     x, info = solvers.solve(H, g, HandlingMethod.PRECONDITIONED_CG, a, TH,
                             telemetry=False, fast=True)
-    assert len(calls) == 1
+    assert len(calls) == 1 and solvers.PCG6.launches == before
     x_ref, info_ref = plain(H, g, a, TH)
     assert _equal(x, x_ref)
     for got, ref in zip(info, info_ref):
@@ -225,7 +226,7 @@ def test_the_launch_refuses_a_cpu_tensor():
     H, g = battery("well", 1)
     a = analyze(H, SCHUR, TH, fast=True)
     with pytest.raises(ValueError, match="CUDA"):
-        solvers._launch_cuda(H, g, a, TH)
+        solvers._launch(H, g, a, TH)
 
 
 GATE_FAULTS = ("none", "branch", "cholesky_x", "nan", "stops", "pcg_x",
@@ -334,14 +335,14 @@ def _compare(H, g, schur_valid=True):
 @pytest.mark.parametrize("B", (1, 128))
 @pytest.mark.parametrize("source", ("battery", "map_like"))
 def test_kernel_matches_the_twin_on_the_card(cuda, source, B):
-    before = solvers.solve_pcg_fast.launches
+    before = solvers.PCG6.launches
     cases = _cases(source, B, cuda)
     rows = [_compare(H, g) for H, g in cases]
     if source == "battery":
         # P's identity where the Schur flag says so, whatever its fields
         rows += [_compare(H, g, schur_valid=False) for H, g in cases]
     torch.cuda.synchronize()
-    assert solvers.solve_pcg_fast.launches - before == len(rows)
+    assert solvers.PCG6.launches - before == len(rows)
     n = {k: sum(r[k] for r in rows) for k in (
         "systems", "pcg_systems", "pcg_converged", "pcg_iterations_differ")}
     assert n["pcg_converged"] > 0 and n["systems"] > n["pcg_systems"]
@@ -368,15 +369,14 @@ def test_one_launch_captured_and_replayed(cuda, shape):
     # one device operation: no copy, fill or contiguity kernel
     assert gr.nodes["solve"] == 1
     assert gr.modules["solve"] == [("solve", 0, 1)]
-    before = (solvers.solve_pcg_fast.launches,
-              solvers.solve_pcg_fast.launches_replayed)
+    before = (solvers.PCG6.launches, solvers.PCG6.launches_replayed)
     for t in held["out"][1]:
         t.fill_(7)
     held["out"][0].fill_(7)
     gr("solve")
     torch.cuda.synchronize()
-    assert solvers.solve_pcg_fast.launches - before[0] == 1
-    assert solvers.solve_pcg_fast.launches_replayed - before[1] == 1
+    assert solvers.PCG6.launches - before[0] == 1
+    assert solvers.PCG6.launches_replayed - before[1] == 1
     x, info = solvers.solve_pcg_fast(H, g, a, TH)
     assert _equal(held["out"][0], x)
     for got, ref in zip(held["out"][1], info):

@@ -149,9 +149,11 @@ def test_cpu_routes_to_the_plain_twin(kind, B, monkeypatch):
         calls.append(args)
         return plain(*args)
 
-    monkeypatch.setattr(soa_tail, "_plane_fit_plain", spy)
+    monkeypatch.setattr(soa_tail.PLANE_FIT, "twin", spy)
+    before = soa_tail.PLANE_FIT.launches
     out = soa_tail._plane_fit(target, idx, PARAMS)
     assert len(calls) == 1 and calls[0][1] is idx
+    assert soa_tail.PLANE_FIT.launches == before
     ref = plain(target, idx, PARAMS)
     for got, want in zip(out, ref):
         assert got.shape == (B, POINTS) and _equal(got, want)
@@ -217,7 +219,7 @@ def test_the_launch_refuses(case):
         idx = torch.zeros((1, soa_tail.K_MAX + 1, POINTS), dtype=torch.int32)
         match = "range"
     with pytest.raises(err, match=match):
-        soa_tail._launch_cuda(target, idx, PARAMS)
+        soa_tail._launch(target, idx, PARAMS)
 
 
 GATE_FAULTS = ("none",) + cs.PLANE_FIT_OUTPUTS + ("nan",)
@@ -283,7 +285,7 @@ def _cases(source, B, dev):
 @pytest.mark.parametrize("B", LANES)
 @pytest.mark.parametrize("source", ("battery", "map_like"))
 def test_kernel_matches_the_twin_on_the_card(cuda, source, B):
-    before = soa_tail._plane_fit.launches
+    before = soa_tail.PLANE_FIT.launches
     rows = []
     for target, idx in _cases(source, B, cuda):
         assert not idx.is_contiguous()
@@ -293,7 +295,7 @@ def test_kernel_matches_the_twin_on_the_card(cuda, source, B):
         assert not row["failed"], row
         rows.append(row)
     torch.cuda.synchronize()
-    assert soa_tail._plane_fit.launches - before == len(rows)
+    assert soa_tail.PLANE_FIT.launches - before == len(rows)
     if source == "map_like":
         # most points fit a thin plane; some have missing neighbours
         r = rows[0]
@@ -314,14 +316,14 @@ def test_one_launch_captured_and_replayed(cuda, B):
     # one device operation: no copy, fill or contiguity kernel
     assert gr.nodes["step"] == 1
     assert gr.modules["step"] == [("tail.planes", 0, 1)]
-    before = (soa_tail._plane_fit.launches,
-              soa_tail._plane_fit.launches_replayed)
+    before = (soa_tail.PLANE_FIT.launches,
+              soa_tail.PLANE_FIT.launches_replayed)
     for t in held["out"]:
         t.fill_(True if t.dtype == torch.bool else 7.0)
     gr("step")
     torch.cuda.synchronize()
-    assert soa_tail._plane_fit.launches - before[0] == 1
-    assert soa_tail._plane_fit.launches_replayed - before[1] == 1
+    assert soa_tail.PLANE_FIT.launches - before[0] == 1
+    assert soa_tail.PLANE_FIT.launches_replayed - before[1] == 1
     eager = soa_tail._plane_fit(world, idx, PARAMS)
     for got, want in zip(held["out"], eager):
         assert _equal(got, want)
