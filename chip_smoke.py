@@ -40,9 +40,18 @@ sm_90a), then runs on the card:
      bit-equal, times and bound); the 128 frames again eagerly with every
      plane fit through the twin (``odometry_plane_fit_vs_twin``: equal
      iterations, poses within 1e-6 m and 1e-6 rad, bit-equality
-     reported); the fleet's first tick (8 robots at frames 0, 16, ...,
-     112), graphed with one plane_fit launch per step and eagerly
-     (``plane_fit_check`` B8_fleet_first_tick); the
+     reported); the kernel schur6 (``degeneracy.analyze(fast=True)``)
+     launched once per ICP iteration and once per frame's epilogue of the
+     128 frames, each launch from a replay, and against its plain twin on
+     every analysis of the first eager 16-frame pass as launched
+     (``schur6_check`` B1_map_pass: flags equal, every field bit-equal,
+     times and bound); the 128 frames again eagerly with every analysis
+     through schur6's twin (``odometry_schur6_vs_twin``: equal iterations
+     and bit-equal poses and frame analyses); the fleet's first tick (8
+     robots at frames 0, 16, ..., 112), graphed with one plane_fit launch
+     per step and one schur6 launch per step and for the epilogue, and
+     eagerly (``plane_fit_check`` and ``schur6_check``
+     B8_fleet_first_tick); the
      8-frame profile window graphed (under 50 kernel-launch calls per
      ICP iteration, the rest by ``cudaGraphLaunch``) and eager;
   3. a B=128 Monte-Carlo batch in MapIndex mode with full telemetry,
@@ -50,7 +59,8 @@ sm_90a), then runs on the card:
      0.5 deg, and rerun eagerly (per-lane iterations equal, poses within
      1e-5), pcg6 against its plain twin on that rerun's systems as
      launched (``pcg6_check`` B128_mc_map), plane_fit on its first
-     iteration (``plane_fit_check`` B128_mc_frame);
+     iteration (``plane_fit_check`` B128_mc_frame), schur6 on its
+     analyses (``schur6_check`` B128_mc_map);
   4. a B=128 BlockIndex-mode batch on a 16,384-point neighbourhood of
      frame 0, graphed, gated on convergence and zero overflow, rerun
      eagerly and eagerly on K1's twin route (``K1.through_the_twin``;
@@ -88,11 +98,10 @@ sm_90a), then runs on the card:
      bit-equality reported); one Ours, XICP, XICP-EQ and O3D run each
      under the profiler (the host's launch calls per ICP iteration
      printed; under one for XICP-EQ and O3D);
-  7. the ``kernels`` line: K1, K2, K3, pcg6 and plane_fit with their
-     launches on each
-     path (K2's including (8b) and (9c), and those of them from graph
-     replays; K1's (10a) and (10b)), times, bounds and library times;
-     printed after phase 10;
+  7. the ``kernels`` line: K1, K2, K3, pcg6, plane_fit and schur6 with
+     their launches on each path (K2's including (8b) and (9c), and those
+     of them from graph replays; K1's (10a) and (10b)), times, bounds and
+     library times; printed after phase 10;
   8. on phase 2's world, trajectory and scans: (8a) the voxel map index
      (``build_voxel_grid`` over the whole map on the card) and the voxel
      odometry loop ``run_odometry`` over the 128 frames from the pose
@@ -158,7 +167,11 @@ sm_90a), then runs on the card:
      recorded from an eager pass (``pcg6_check``: each as launched, B = 1,
      and the first 128 stacked; all degenerate, so they take PCG: every
      stop legitimate, converged answers within float32 rounding, the
-     residuals those of the answers, P to 1e-6); (10b) bench.py's
+     residuals those of the answers, P to 1e-6); schur6 against its twin
+     on the same pass's analyses (``schur6_check`` B1_corridor and
+     B128_corridor, the first 128 stacked) and DCReg's frames eagerly
+     through schur6's twin (``corridor_schur6_vs_twin``: equal iterations
+     per frame, poses within 1e-6 m and 1e-6 rad); (10b) bench.py's
      map-scale baseline rows ME-TSVD, ME-TReg and FCN-SR through
      ``run_odometry_map`` on phase 2's map, capacities and first 16
      frames: finite poses for all three; for ME-TSVD and ME-TReg zero
@@ -243,7 +256,7 @@ def wall(fn):
 # names of the port's hand-written CUDA kernels (csrc/)
 PORT_KERNELS = ("block_knn_keys_kernel", "block_knn_merge_kernel",
                 "knn_candidates_kernel", "group_min_kernel", "pcg6_kernel",
-                "plane_fit_kernel")
+                "plane_fit_kernel", "schur6_kernel")
 
 
 # host calls of the CUDA runtime that launch work: kernels one by one, or
@@ -834,6 +847,68 @@ def plane_fit_timed(ops, out):
             **plane_fit_bound(B, k, N)}
 
 
+# per system (dcreg_tpu_torch/csrc/schur6.cu's note): H read, 85 floats and
+# 8 flags written; float operations
+SCHUR6_BYTES = 144 + 4 * 85 + 8
+SCHUR6_OPS = 920
+
+
+def schur6_bound(nb):
+    """Least time for schur6's work on nb systems: the larger of their
+    bytes over the memory rate and their float operations over the f32
+    rate."""
+    nbytes, ops = SCHUR6_BYTES * nb, SCHUR6_OPS * nb
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops}
+
+
+def schur6_gates(out, twin):
+    """schur6's analysis ``out`` against its plain twin's ``twin`` of the
+    same systems: a row of measures, with ``failed``, the fields that
+    differ.  Gates: every field in the twin's shape and dtype;
+    schur_valid, is_degenerate and degenerate_mask equal; every float
+    field bit-equal (the same bits, so a zero's sign too), NaN where the
+    twin's are.  No tolerance: the kernel repeats the twin's float32
+    operations one for one in the order ATen's kernels take on the card
+    (csrc/schur6.cu's note), so any difference is a fault.  Each system
+    that differs is counted per field (``differ``), and the first 8 of
+    each printed with both values (``shown``)."""
+    n = twin.schur_valid.numel()
+    row = {"systems": n, "schur_valid": int(twin.schur_valid.sum()),
+           "degenerate": int(twin.is_degenerate.sum()),
+           "differ": {}, "shown": {}, "failed": []}
+    for name, b in zip(twin._fields, twin):
+        a = getattr(out, name)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            row["differ"][name] = n
+            row["failed"].append(name)
+            row["shown"][name] = [[-1, str(a.shape), str(b.shape)]]
+            continue
+        a, b = a.reshape(n, -1), b.reshape(n, -1)
+        if a.dtype.is_floating_point:
+            nan_a, nan_b = a.isnan(), b.isnan()
+            bad = (nan_a != nan_b) | (~nan_a & (
+                a.view(torch.int32) != b.view(torch.int32)))
+        else:
+            bad = a != b
+        at = bad.any(-1).nonzero()[:, 0]
+        row["differ"][name] = int(at.numel())
+        if at.numel():
+            row["failed"].append(name)
+            row["shown"][name] = [[i, a[i].tolist(), b[i].tolist()]
+                                  for i in at[:8].tolist()]
+    return row
+
+
+def schur6_timed(ops, out):
+    """The timed call's batch and its bound."""
+    batch = list(ops[0].shape[:-2])
+    return {"batch": batch, **schur6_bound(int(np.prod(batch)))}
+
+
 def same_layout_copy(t):
     """A copy of ``t`` over a copy of its whole storage, with its shape,
     strides and offset: the kernel reads it as it read ``t``."""
@@ -853,7 +928,9 @@ CHECKS = {
                                                ops[3]),
              pcg6_timed, pcg6_overall),
     "plane_fit": (lambda ops, out, twin: plane_fit_gates(out, twin),
-                  plane_fit_timed, None)}
+                  plane_fit_timed, None),
+    "schur6": (lambda ops, out, twin: schur6_gates(out, twin),
+               schur6_timed, None)}
 
 
 def combined(rows):
@@ -2398,12 +2475,17 @@ def run_corridor(device: str = "cuda"):
     call (frame 0's reused list and live mask); pcg6 against its plain
     twin on DCReg's own systems, which take PCG (every frame is
     degenerate), recorded from an eager pass: each as launched (B = 1)
-    and the first 128 stacked; then two DCReg and two ME-TSVD frames
-    under the profiler.  Returns K1's launches in ``main``, the K1
-    check's row, the pcg6 rows, pcg6's launches in ``main`` and
-    plane_fit's launches in ``main``."""
+    and the first 128 stacked; schur6 against its twin on the same pass's
+    analyses, as launched and the first 128 stacked, and DCReg's frames
+    eagerly through schur6 and through its twin (equal iterations per
+    frame, poses within 1e-6 m and 1e-6 rad); then two DCReg and two
+    ME-TSVD frames under the profiler.  Returns K1's launches in
+    ``main``, the K1 check's row, the pcg6 rows, pcg6's launches in
+    ``main``, plane_fit's launches in ``main``, the schur6 rows and
+    schur6's launches in ``main``."""
     from dcreg_tpu_torch.io.tum import load_tum
     from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import degeneracy
     from dcreg_tpu_torch.ops import soa_tail
     from dcreg_tpu_torch.ops import solvers as tsol
     from dcreg_tpu_torch.scripts import run_corridor_experiment as rce
@@ -2432,6 +2514,7 @@ def run_corridor(device: str = "cuda"):
     launches = tally.launches(tk.K1)
     pcg6_launches = tally.launches(tsol.PCG6)
     plane_launches = tally.launches(soa_tail.PLANE_FIT)
+    schur_launches = tally.launches(degeneracy.SCHUR6)
     with open(os.path.join(out_dir, "corridor_summary.json")) as f:
         summary = json.load(f)
     poses = {m: load_tum(os.path.join(out_dir, f"{m}.tum"))[1]
@@ -2472,9 +2555,10 @@ def run_corridor(device: str = "cuda"):
         raise RuntimeError(f"corridor gates failed: {row}")
 
     det, hand = next((d, h) for m, d, h in rce.METHODS if m == "DCReg")
-    solves = []
-    recording(tsol.PCG6, lambda graph: rce.run_method(
-        inp, det, hand, device, graph=graph), solves)(False)
+    solves, analyses = [], []
+    res = recording(degeneracy.SCHUR6, recording(
+        tsol.PCG6, lambda graph: rce.run_method(
+            inp, det, hand, device, graph=graph), solves), analyses)(False)
     first = next((i for i, c in enumerate(solves)
                   if bool(c[2].is_degenerate.any())), 0)
     pcg6_rows = {"B1_corridor": check_kernel(tsol.PCG6, "B1_corridor",
@@ -2484,6 +2568,34 @@ def run_corridor(device: str = "cuda"):
                      [stacked_solves(solves[:128])])}
     if min(r["pcg_systems"] for r in pcg6_rows.values()) == 0:
         raise RuntimeError(f"the corridor's DCReg took no PCG: {pcg6_rows}")
+    stacked = (torch.cat([c[0].reshape(-1, 6, 6) for c in analyses[:128]]),
+               analyses[0][1])
+    schur_rows = {
+        "B1_corridor": check_kernel(degeneracy.SCHUR6, "B1_corridor",
+                                    analyses),
+        "B128_corridor": check_kernel(degeneracy.SCHUR6, "B128_corridor",
+                                      [stacked])}
+    # DCReg's frames through the twin: the poses depend on the analysis
+    # (every frame is degenerate; P comes from its Schur fields)
+    with degeneracy.SCHUR6.through_the_twin():
+        twin = rce.run_method(inp, det, hand, device, graph=False)
+    twin_row = {"phase": "corridor_schur6_vs_twin",
+                "frames": int(res.iterations.numel()),
+                "same_iterations": bool(torch.equal(res.iterations,
+                                                    twin.iterations)),
+                "pose_max_diff_m": float((res.poses[:, :3, 3].double()
+                                          - twin.poses[:, :3, 3].double()
+                                          ).norm(dim=-1).max()),
+                "rot_max_diff_rad": float(rotation_diff_rad(
+                    res.poses[:, :3, :3], twin.poses[:, :3, :3]).max()),
+                "bit_equal": bit_equal([res.poses, res.iterations],
+                                       [twin.poses, twin.iterations])}
+    emit(twin_row)
+    if not (twin_row["same_iterations"]
+            and twin_row["pose_max_diff_m"] <= 1e-6
+            and twin_row["rot_max_diff_rad"] <= 1e-6):
+        raise RuntimeError(f"the corridor's DCReg with schur6 differs from "
+                           f"it through the twin: {twin_row}")
 
     for name, det, hand in rce.METHODS:
         if name not in ("DCReg", "ME-TSVD"):
@@ -2501,7 +2613,8 @@ def run_corridor(device: str = "cuda"):
         prof["kernels_per_icp_iteration"] = prof["kernel_launches"] / trips
         prof["phase10_s"] = time.perf_counter() - t_start
         emit(prof)
-    return launches, k1_row, pcg6_rows, pcg6_launches, plane_launches
+    return (launches, k1_row, pcg6_rows, pcg6_launches, plane_launches,
+            schur_rows, schur_launches)
 
 
 def run_map_baselines(ctx, device: str = "cuda"):
@@ -2584,7 +2697,7 @@ def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.models.odometry import run_odometry_fleet
     from dcreg_tpu_torch.ops import block_knn as tk
-    from dcreg_tpu_torch.ops import soa_tail
+    from dcreg_tpu_torch.ops import degeneracy, soa_tail
     from dcreg_tpu_torch.ops import solvers as tsol
     from dcreg_tpu_torch.ops.block_sparse import (build_block_index,
                                                   build_map_index,
@@ -2686,7 +2799,8 @@ def run(seed: int, device: str = "cuda"):
 
     params = ICPParams()
     launches, pcg6_launches, plane_launches = {}, {}, {}
-    PLANE, PCG6 = soa_tail.PLANE_FIT, tsol.PCG6
+    schur_launches, schur_replayed = {}, {}
+    PLANE, PCG6, SCHUR = soa_tail.PLANE_FIT, tsol.PCG6, degeneracy.SCHUR6
 
     # ---- 2. the localization loop, replayed as CUDA graphs ---------------
     def run_odom(n=FRAMES, graph=None, mi=mindex, wt=world_t, shift=None):
@@ -2712,6 +2826,8 @@ def run(seed: int, device: str = "cuda"):
     pcg6_launches["odometry"] = tally.launches(PCG6)
     plane_launches["odometry"] = tally.launches(PLANE)
     plane_replayed = tally.replayed(PLANE)
+    schur_launches["odometry"] = tally.launches(SCHUR)
+    schur_replayed["odometry"] = tally.replayed(SCHUR)
     est = res.poses.cpu().numpy()
     te = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
     odom = {"phase": "odometry", "frames": FRAMES, "graphed": True,
@@ -2729,6 +2845,8 @@ def run(seed: int, device: str = "cuda"):
             "k1_launches_per_frame": launches["odometry"] / FRAMES,
             "plane_fit_launches": plane_launches["odometry"],
             "plane_fit_launches_replayed": plane_replayed,
+            "schur6_launches": schur_launches["odometry"],
+            "schur6_launches_replayed": schur_replayed["odometry"],
             "icp_iterations": int(res.iterations.sum())}
     emit(odom)
     if not (bool(res.converged.all()) and odom["ovf_max"] == 0
@@ -2739,10 +2857,17 @@ def run(seed: int, device: str = "cuda"):
             == odom["icp_iterations"]):
         raise RuntimeError(f"plane_fit launches differ from the loop's "
                            f"ICP iterations: {odom}")
-    map_solves, map_planes, pcg6_rows, plane_rows = [], [], {}, {}
-    emit(eager_vs_graphed(recording(PLANE, recording(
+    # one schur6 launch per ICP iteration and one per frame's epilogue,
+    # each from a replay
+    if not (schur_replayed["odometry"] == schur_launches["odometry"]
+            == odom["icp_iterations"] + FRAMES):
+        raise RuntimeError(f"schur6 launches differ from the loop's ICP "
+                           f"iterations and frames: {odom}")
+    map_solves, map_planes, map_analyses = [], [], []
+    pcg6_rows, plane_rows, schur_rows = {}, {}, {}
+    emit(eager_vs_graphed(recording(SCHUR, recording(PLANE, recording(
         PCG6, lambda graph: run_odom(EAGER_CHECK_FRAMES, graph), map_solves),
-        map_planes, limit=1), "odometry_eager_vs_graphed"))
+        map_planes, limit=1), map_analyses), "odometry_eager_vs_graphed"))
     emit(stale_cache_check(run_odom, res, world, device))
     # pcg6 on the eager pass's own systems, each as launched (B = 1)
     pcg6_rows["B1_map_pass"] = check_kernel(PCG6, "B1_map_pass", map_solves)
@@ -2750,6 +2875,11 @@ def run(seed: int, device: str = "cuda"):
     plane_rows["B1_map_first_iteration"] = check_kernel(
         PLANE, "B1_map_first_iteration", map_planes,
         launches=plane_launches["odometry"])
+    # schur6 on the eager pass's own analyses, each as launched (the
+    # step's (1, 6, 6) and the epilogue's (6, 6))
+    schur_rows["B1_map_pass"] = check_kernel(
+        SCHUR, "B1_map_pass", map_analyses,
+        launches=schur_launches["odometry"])
     # the 128 frames again, every plane fit through the plain twin (eager)
     with PLANE.through_the_twin():
         twin_res, twin_s = wall(lambda: run_odom(graph=False))
@@ -2770,6 +2900,23 @@ def run(seed: int, device: str = "cuda"):
             and twin_row["rot_max_diff_rad"] <= 1e-6):
         raise RuntimeError(f"the loop with plane_fit differs from the loop "
                            f"through its twin: {twin_row}")
+    # and with every degeneracy analysis through schur6's twin (eager)
+    with SCHUR.through_the_twin():
+        twin_res, twin_s = wall(lambda: run_odom(graph=False))
+    twin_row = {"phase": "odometry_schur6_vs_twin", "frames": FRAMES,
+                "twin_eager_s": twin_s,
+                "same_iterations": bool(torch.equal(res.iterations,
+                                                    twin_res.iterations)),
+                "bit_equal": bit_equal(
+                    [res.poses, res.iterations, res.is_degenerate,
+                     res.cond_schur_rot, res.cond_schur_trans],
+                    [twin_res.poses, twin_res.iterations,
+                     twin_res.is_degenerate, twin_res.cond_schur_rot,
+                     twin_res.cond_schur_trans])}
+    emit(twin_row)
+    if not (twin_row["same_iterations"] and twin_row["bit_equal"]):
+        raise RuntimeError(f"the loop with schur6 differs from the loop "
+                           f"through its twin: {twin_row}")
     # the fleet's first tick (8 robots at frames 0, 16, ..., 112): graphed,
     # then eagerly with plane_fit's first launch recorded (B = 8)
     known_t = np.stack(known)
@@ -2786,15 +2933,29 @@ def run(seed: int, device: str = "cuda"):
     tally = Tally()
     tick = fleet_tick()
     plane_launches["fleet_tick"] = tally.launches(PLANE)
-    if plane_launches["fleet_tick"] != int(tick.iterations.max()):
+    schur_launches["fleet_tick"] = tally.launches(SCHUR)
+    schur_replayed["fleet_tick"] = tally.replayed(SCHUR)
+    steps = int(tick.iterations.max())
+    if plane_launches["fleet_tick"] != steps:
         raise RuntimeError(f"plane_fit launches "
                            f"{plane_launches['fleet_tick']} differ from the "
                            f"fleet tick's steps {tick.iterations.tolist()}")
-    fleet_planes = []
-    recording(PLANE, fleet_tick, fleet_planes, limit=1)(False)
+    # one schur6 launch per step and one for the tick's 8 frame analyses
+    if not (schur_replayed["fleet_tick"] == schur_launches["fleet_tick"]
+            == steps + 1):
+        raise RuntimeError(f"schur6 launches {schur_launches['fleet_tick']} "
+                           f"differ from the fleet tick's steps and "
+                           f"epilogue {tick.iterations.tolist()}")
+    fleet_planes, fleet_analyses = [], []
+    recording(SCHUR, recording(PLANE, fleet_tick, fleet_planes, limit=1),
+              fleet_analyses)(False)
     plane_rows["B8_fleet_first_tick"] = check_kernel(
         PLANE, "B8_fleet_first_tick", fleet_planes,
         launches=plane_launches["fleet_tick"])
+    # schur6 on the tick's steps and its epilogue, each as launched (B = 8)
+    schur_rows["B8_fleet_first_tick"] = check_kernel(
+        SCHUR, "B8_fleet_first_tick", fleet_analyses,
+        launches=schur_launches["fleet_tick"])
     for graph in (None, False):
         held = {}
 
@@ -2824,14 +2985,19 @@ def run(seed: int, device: str = "cuda"):
     launches["mc_map"] = tally.launches(tk.K1)
     pcg6_launches["mc_map"] = tally.launches(PCG6)
     plane_launches["mc_map"] = tally.launches(PLANE)
-    mc_solves, mc_planes = [], []
-    eager = batch_against_eager(out, recording(
-        PLANE, recording(PCG6, mc, mc_solves), mc_planes, limit=1))
+    schur_launches["mc_map"] = tally.launches(SCHUR)
+    mc_solves, mc_planes, mc_analyses = [], [], []
+    eager = batch_against_eager(out, recording(SCHUR, recording(
+        PLANE, recording(PCG6, mc, mc_solves), mc_planes, limit=1),
+        mc_analyses))
     # pcg6 on the eager rerun's own systems, each as launched (B = 128)
     pcg6_rows["B128_mc_map"] = check_kernel(PCG6, "B128_mc_map", mc_solves)
     # plane_fit on the eager rerun's first ICP iteration (B = 128)
     plane_rows["B128_mc_frame"] = check_kernel(
         PLANE, "B128_mc_frame", mc_planes, launches=plane_launches["mc_map"])
+    # schur6 on the eager rerun's own analyses (B = 128)
+    schur_rows["B128_mc_map"] = check_kernel(
+        SCHUR, "B128_mc_map", mc_analyses, launches=schur_launches["mc_map"])
     last = (out.iterations.long() - 1).clamp(min=0)
     lane = torch.arange(BATCH, device=last.device)
     te = out.log.trans_error[lane, last].cpu().numpy()
@@ -2864,6 +3030,7 @@ def run(seed: int, device: str = "cuda"):
     launches["mc_block"] = tally.launches(tk.K1)
     pcg6_launches["mc_block"] = tally.launches(PCG6)
     plane_launches["mc_block"] = tally.launches(PLANE)
+    schur_launches["mc_block"] = tally.launches(SCHUR)
     eager = batch_against_eager(out, blk_run)
     with tk.K1.through_the_twin():
         ref = blk_run(graph=False)
@@ -2897,12 +3064,16 @@ def run(seed: int, device: str = "cuda"):
     if min(plane_launches.values()) <= 0:
         raise RuntimeError(f"plane_fit not launched on every path: "
                            f"{plane_launches}")
+    if min(schur_launches.values()) <= 0:
+        raise RuntimeError(f"schur6 not launched on every path: "
+                           f"{schur_launches}")
     a = rows["a_map_B1_slotted_nomask"]
     ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
            "T_pre2": T_pre2, "odom_poses": est.astype(np.float64),
            "mindex": mindex, "world_t": world_t, "caps": (S, G, P),
            "pcg6": (pcg6_rows, pcg6_launches),
-           "plane_fit": (plane_rows, plane_launches)}
+           "plane_fit": (plane_rows, plane_launches),
+           "schur6": (schur_rows, schur_launches)}
     return ctx, kernel_entry(
         tk.K1, "block_knn_keys", rows, launches, "a_map_B1_slotted_nomask",
         ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "B", "nsplit",
@@ -2959,7 +3130,7 @@ def main():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.ops import knn_kernels as kn
-    from dcreg_tpu_torch.ops import soa_tail, solvers
+    from dcreg_tpu_torch.ops import degeneracy, soa_tail, solvers
     build_kernels()
     ctx, k1 = run(args.seed)
     k2, k3 = run_pair(args.seed)
@@ -2973,7 +3144,8 @@ def main():
         k2["launches_by_path"][path] = n
         k2["launches_from_replays_by_path"][path] = tally.replayed(kn.K2)
     corridor, k1_corridor, pcg6_corridor, pcg6_corridor_launches, \
-        plane_corridor_launches = run_corridor()
+        plane_corridor_launches, schur_corridor, schur_corridor_launches = \
+        run_corridor()
     k1["shapes"]["corridor_live_B1_reuse_mask"] = {
         f: k1_corridor[f] for f in k1["shapes"]["a_map_B1_slotted_nomask"]}
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_corridor["max_abs_err"])
@@ -2991,6 +3163,11 @@ def main():
     plane_launches["corridor"] = plane_corridor_launches
     if plane_corridor_launches <= 0:
         raise RuntimeError("plane_fit not launched on the corridor")
+    schur_rows, schur_launches = ctx["schur6"]
+    schur_rows.update(schur_corridor)
+    schur_launches["corridor"] = schur_corridor_launches
+    if schur_corridor_launches <= 0:
+        raise RuntimeError("schur6 not launched on the corridor")
     emit({"kernels": [
         k1, k2, k3,
         kernel_entry(solvers.PCG6, "solve_pcg_fast", pcg6_rows,
@@ -3001,7 +3178,11 @@ def main():
         kernel_entry(soa_tail.PLANE_FIT, "_plane_fit", plane_rows,
                      plane_launches, "B1_map_first_iteration", (
                          "batch", "points", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "launches"))]})
+                         "bound_by", "launches")),
+        kernel_entry(degeneracy.SCHUR6, "analyze", schur_rows,
+                     schur_launches, "B1_map_pass", (
+                         "batch", "calls", "systems", "degenerate", "ms",
+                         "plain_ms", "bound_ms", "bound_by"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

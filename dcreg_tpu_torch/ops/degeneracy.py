@@ -6,14 +6,24 @@ the DCReg targeted preconditioner, batched over leading dimensions (the
 telemetry pass analyses (B, I) Hessians at once).  The detection method is
 a static enum; the JAX module's traced int codes exist only to cover the
 method matrix with one XLA compile and have no counterpart here.
+
+The fast Schur analysis, ``analyze(..., fast=True)`` with
+SCHUR_CONDITION_NUMBER, is a kernel boundary (``SCHUR6``, a
+``cuda_build.Kernel``): a CUDA tensor launches the hand-written kernel
+schur6 (``csrc/schur6.cu``, built on first use with nvcc and bound with
+ctypes; one launch where the plain form runs 298 small ops), a CPU tensor
+takes the plain PyTorch twin ``analyze_fast_plain``.
 """
 from __future__ import annotations
 
+import ctypes
 import enum
+import math
 from typing import NamedTuple
 
 import torch
 
+from .. import cuda_build
 from . import linalg
 
 
@@ -93,14 +103,10 @@ def _eye6_like(H):
         H.shape[:-2] + (6, 6))
 
 
-def analyze(H, method: DetectionMethod,
-            thresholds: DegeneracyThresholds = DegeneracyThresholds(),
-            fast: bool = False) -> DegeneracyAnalysis:
-    """Spectral analysis + detection mask of (..., 6, 6) GN Hessians.
-
-    ``fast=True`` (only with SCHUR_CONDITION_NUMBER) skips the 6x6
-    eigendecomposition (those fields are NaN) and takes the closed-form
-    3x3 eigensolver for the Schur blocks."""
+def _analyze(H, method: DetectionMethod, thresholds: DegeneracyThresholds,
+             fast: bool) -> DegeneracyAnalysis:
+    """The plain analysis (``analyze``'s doc); with ``fast`` and
+    SCHUR_CONDITION_NUMBER it is schur6's twin."""
     dtype, dev = H.dtype, H.device
     batch = H.shape[:-2]
     fast = fast and method is DetectionMethod.SCHUR_CONDITION_NUMBER
@@ -196,6 +202,103 @@ def analyze(H, method: DetectionMethod,
         cond_schur_rot=cond_schur_rot, cond_schur_trans=cond_schur_trans,
         schur_valid=invertible, is_degenerate=is_degen,
         degenerate_mask=mask)
+
+
+def analyze_fast_plain(H, thresholds: DegeneracyThresholds
+                       ) -> DegeneracyAnalysis:
+    """Plain PyTorch twin of schur6: the fast Schur analysis, no 6x6
+    eigendecomposition (those fields NaN, cond_full inf) and the
+    closed-form 3x3 eigensolver for the diagonal and Schur blocks."""
+    return _analyze(H, DetectionMethod.SCHUR_CONDITION_NUMBER, thresholds,
+                    fast=True)
+
+
+# ---------------------------------------------------------------------------
+# schur6: the launch
+# ---------------------------------------------------------------------------
+
+# the kernel's outputs: (field, trailing shape) in DegeneracyAnalysis'
+# order, the float fields in one buffer and the flags in another, each
+# field a contiguous block of it (csrc/schur6.cu's offsets)
+_FLOAT_FIELDS = (
+    ("eigenvalues_full", (6,)), ("eigenvectors_full", (6, 6)),
+    ("singular_values", (6,)), ("cond_full", ()),
+    ("cond_full_sub_rot", ()), ("cond_full_sub_trans", ()),
+    ("lambda_diag_rot", (3,)), ("lambda_diag_trans", (3,)),
+    ("cond_diag_rot", ()), ("cond_diag_trans", ()),
+    ("lambda_schur_rot", (3,)), ("lambda_schur_trans", (3,)),
+    ("V_schur_rot", (3, 3)), ("V_schur_trans", (3, 3)),
+    ("cond_schur_rot", ()), ("cond_schur_trans", ()))
+_FLAG_FIELDS = (("schur_valid", ()), ("is_degenerate", ()),
+                ("degenerate_mask", (6,)))
+# per system: 85 floats and 8 flags
+_N_FLOAT, _N_FLAG = (sum(math.prod(t) for _, t in fields)
+                     for fields in (_FLOAT_FIELDS, _FLAG_FIELDS))
+
+
+def kernel_operands(H):
+    """(nb, view, strides): H with its leading batch dimensions merged
+    into one of ``nb`` systems (a view of the caller's tensor wherever
+    they merge, as they do for every caller's layout, so no copy runs),
+    and its element strides."""
+    if tuple(H.shape[-2:]) != (6, 6):
+        raise ValueError(f"schur6: H has shape {tuple(H.shape)}, expected "
+                         f"(..., 6, 6)")
+    nb = math.prod(H.shape[:-2])
+    view = H.reshape(nb, 6, 6)
+    return nb, view, list(view.stride())
+
+
+def _carve(buf, fields, batch, nb):
+    """The fields' contiguous blocks of ``buf``, each shaped batch +
+    its trailing shape."""
+    out, at = {}, 0
+    for name, tail in fields:
+        size = math.prod(tail)
+        out[name] = buf[at * nb:(at + size) * nb].view(batch + tail)
+        at += size
+    return out
+
+
+def _launch(H, thresholds: DegeneracyThresholds) -> DegeneracyAnalysis:
+    if H.dtype != torch.float32:
+        raise TypeError(f"schur6: H is {H.dtype}, expected torch.float32")
+    nb, view, strides = kernel_operands(H)
+    dev = H.device
+    if dev.type != "cuda":
+        raise ValueError(f"schur6 runs on a CUDA device, got {dev}")
+    batch = tuple(H.shape[:-2])
+    out = torch.empty(_N_FLOAT * nb, dtype=torch.float32, device=dev)
+    flags = torch.empty(_N_FLAG * nb, dtype=torch.bool, device=dev)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    SCHUR6.launch(view.data_ptr(), c_strides, len(strides), out.data_ptr(),
+                  flags.data_ptr(), nb, float(thresholds.cond_thresh),
+                  device=dev)
+    return DegeneracyAnalysis(**_carve(out, _FLOAT_FIELDS, batch, nb),
+                              **_carve(flags, _FLAG_FIELDS, batch, nb))
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SCHUR6 = cuda_build.Kernel(
+    "schur6", "schur6.cu", "dcreg_schur6",
+    [_P, _P, _I, _P, _P, _I, ctypes.c_float, _P],
+    twin=analyze_fast_plain, on_card=_launch)
+
+
+def analyze(H, method: DetectionMethod,
+            thresholds: DegeneracyThresholds = DegeneracyThresholds(),
+            fast: bool = False) -> DegeneracyAnalysis:
+    """Spectral analysis + detection mask of (..., 6, 6) GN Hessians.
+
+    ``fast=True`` (only with SCHUR_CONDITION_NUMBER) skips the 6x6
+    eigendecomposition (those fields are NaN) and takes the closed-form
+    3x3 eigensolver for the Schur blocks: the boundary of schur6, where
+    CPU tensors take the plain twin ``analyze_fast_plain`` and CUDA
+    tensors launch the kernel, float32 as the port runs on the card (or
+    raise)."""
+    if fast and method is DetectionMethod.SCHUR_CONDITION_NUMBER:
+        return SCHUR6(H, thresholds)
+    return _analyze(H, method, thresholds, fast=False)
 
 
 class AlignmentInfo(NamedTuple):

@@ -107,7 +107,7 @@ def _device_inputs(device):
             e(P, dt=torch.int32), e(P, dt=torch.int32))
 
 
-KERNELS = ("K1", "K2", "K3", "pcg6", "plane_fit")
+KERNELS = ("K1", "K2", "K3", "pcg6", "plane_fit", "schur6")
 NO_NVCC = (RuntimeError, "nvcc not found")
 
 
@@ -152,6 +152,13 @@ def _boundary(label, device):
         return solvers.PCG6, [
             (lambda: solvers.solve_pcg_fast(H, g, a,
                                             tdeg.DegeneracyThresholds()),
+             (ValueError, "CUDA device"))]
+    if label == "schur6":
+        H = (torch.eye(6).expand(2, 6, 6) * torch.arange(1.0, 7.0)).to(device)
+        return tdeg.SCHUR6, [
+            (lambda: tdeg.analyze(H,
+                                  tdeg.DetectionMethod.SCHUR_CONDITION_NUMBER,
+                                  tdeg.DegeneracyThresholds(), fast=True),
              (ValueError, "CUDA device"))]
     idx = torch.randint(0, 300, (2, 5, 20), dtype=torch.int32).to(device)
     params = soa_tail.CorrespondenceParams()
