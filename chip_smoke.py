@@ -51,7 +51,16 @@ sm_90a), then runs on the card:
      robots at frames 0, 16, ..., 112), graphed with one plane_fit launch
      per step and one schur6 launch per step and for the epilogue, and
      eagerly (``plane_fit_check`` and ``schur6_check``
-     B8_fleet_first_tick); the
+     B8_fleet_first_tick); the mixed fleet's first tick at its
+     benchmark cell's shape (``run_mixed_tick``: 32 robots at frames 0,
+     4, ..., 124, each scan a kd-sorted random subset of its frame of
+     1,000-2,000 or 3,000-5,000 points padded to 5,000, ``counts``):
+     graphed with one K1, plane_fit and pcg6 launch per step and one
+     schur6 launch per step and for the epilogue, each from a replay,
+     and eagerly (equal iterations, poses within 1e-6 m and 1e-6 rad),
+     K1 against its twin on the first step's inputs as launched
+     (``k1_check`` g_mix32_ragged_reuse_mask), plane_fit, schur6 and
+     pcg6 against theirs (B32_mix_first_tick); the
      8-frame profile window graphed (under 50 kernel-launch calls per
      ICP iteration, the rest by ``cudaGraphLaunch``) and eager;
   3. a B=128 Monte-Carlo batch in MapIndex mode with full telemetry,
@@ -519,6 +528,41 @@ def k1_fleet_inputs(frames_s, index, Rs, ts, caps, device):
                 qid=i32(qid), tid=i32(tid), pid=i32(slot),
                 lane_mask=i32(live[:, None]), index_bits=ib, scale=scale,
                 clamp=clamp, nq_lane=nq)
+
+
+# the mixed fleet of the benchmark's ``fleet32mix`` configuration: 32
+# robots 4 frames apart, robot r sparse (1,000-2,000 points a frame) where
+# r % 4 is 0, else dense (3,000-5,000), in scans of capacity SCAN_POINTS
+MIX_SENSORS, MIX_SPACING, MIX_SPARSE_EVERY = 32, 4, 4
+MIX_SPARSE, MIX_DENSE = (1000, 2000), (3000, 5000)
+
+
+def mixed_fleet_inputs(frames_s, known, mindex, seed):
+    """The mixed fleet's first tick: (scans (32, N, 3), counts (32,),
+    frames, capacities).  Each robot's count is drawn uniformly in its
+    class's range, its scan is a random subset of that many of its
+    frame's points, kd-block-sorted, then zero pads; the capacities cover
+    every lane's own scan at its pose, the one before and the
+    constant-velocity prediction."""
+    from dcreg_tpu_torch.models.odometry import estimate_odometry_capacities
+    from dcreg_tpu_torch.ops.block_sparse import kd_block_order
+    rng = np.random.default_rng(seed + 22)
+    F, N = frames_s.shape[:2]
+    lanes = [min(MIX_SPACING * r, F - 1) for r in range(MIX_SENSORS)]
+    scans_p = np.zeros((MIX_SENSORS, N, 3), np.float32)
+    counts = np.zeros(MIX_SENSORS, np.int64)
+    caps = np.zeros(3, np.int64)
+    for r, f in enumerate(lanes):
+        lo, hi = MIX_SPARSE if r % MIX_SPARSE_EVERY == 0 else MIX_DENSE
+        n = int(rng.integers(lo, hi + 1))
+        sub = frames_s[f][np.sort(rng.choice(N, n, replace=False))]
+        scans_p[r, :n] = sub[kd_block_order(sub, 128)]
+        counts[r] = n
+        caps = np.maximum(caps, estimate_odometry_capacities(
+            mindex, np.repeat(scans_p[r:r + 1, :n], 3, 0), known[f:f + 3],
+            R_CULL0 + REUSE_MARGIN, margin=1.25, slot_margin=1.6,
+            sup_margin=4))
+    return scans_p, counts, lanes, tuple(int(c) for c in caps)
 
 
 def k1_bound(a):
@@ -2687,6 +2731,94 @@ def run_map_baselines(ctx, device: str = "cuda"):
 
 # --------------------------------------------------------------------------
 
+K1_OPERANDS = ("src_blocks", "tgt", "poses", "qid", "tid", "pid",
+               "lane_mask", "index_bits", "scale", "clamp", "nq_lane")
+
+
+def run_mixed_tick(seed, frames_s, known, mindex, world_t, params,
+                   device="cuda"):
+    """The mixed fleet's first tick at its cell's shape
+    (``mixed_fleet_inputs``: 32 robots at frames 0, 4, ..., 124, scans of
+    their own sizes in a capacity of SCAN_POINTS): graphed, gated on one
+    K1, plane_fit and pcg6 launch per step and one schur6 launch per step
+    and for the epilogue, each from a replay; then eagerly, recording the
+    kernels' operands as launched, gated on equal iterations and poses
+    within 1e-6 m and 1e-6 rad of the graphed tick (bit-equality
+    reported); K1 against its twin on the first step's inputs (the
+    ragged prologue's pair list and the live mask), plane_fit on the
+    first step, schur6 and pcg6 on every call (``B32_mix_first_tick``).
+    Returns (K1's row, {kernel label: row}, {kernel label: launches})."""
+    from dcreg_tpu_torch.models.odometry import run_odometry_fleet
+    from dcreg_tpu_torch.ops import block_knn as tk
+    from dcreg_tpu_torch.ops import degeneracy, soa_tail
+    from dcreg_tpu_torch.ops import solvers as tsol
+    scans_p, counts, lanes, (S, G, P) = mixed_fleet_inputs(
+        frames_s, known, mindex, seed)
+    known_t = np.stack(known)
+    scans_t = torch.as_tensor(scans_p, device=device)
+
+    def tick(graph=None):
+        return run_odometry_fleet(
+            scans_t, mindex, world_t, known_t[[f + 1 for f in lanes]],
+            known_t[lanes], icp_params=params, num_supers=S,
+            max_per_query=G, num_pairs=P, initial_cull_radius=R_CULL0,
+            reuse_margin=REUSE_MARGIN, counts=counts, device=device,
+            graph=graph)
+
+    K1, PLANE, PCG6, SCHUR = (tk.K1, soa_tail.PLANE_FIT, tsol.PCG6,
+                              degeneracy.SCHUR6)
+    tick()                                      # captures
+    tally = Tally()
+    res = tick()
+    steps = int(res.iterations.max())
+    want = {K1: steps, PLANE: steps, PCG6: steps, SCHUR: steps + 1}
+    launches = {k.label: tally.launches(k) for k in want}
+    replayed = {k.label: tally.replayed(k) for k in want}
+    row = {"phase": "mixed_fleet_tick", "sensors": MIX_SENSORS,
+           "capacity": int(scans_p.shape[1]), "counts": counts.tolist(),
+           "points": int(counts.sum()), "caps": [S, G, P],
+           "frames": lanes, "iterations": res.iterations.tolist(),
+           "steps": steps, "launches": launches, "replayed": replayed,
+           "aborted": int(res.aborted.sum()),
+           "ovf_max": int(res.pair_overflow.max())}
+    if not all(launches[k.label] == replayed[k.label] == n
+               for k, n in want.items()):
+        emit(row)
+        raise RuntimeError(f"the mixed fleet's launches differ from one "
+                           f"per step (schur6: and one for the epilogue): "
+                           f"{row}")
+    k1_calls, planes, solves, analyses = [], [], [], []
+    eager = recording(K1, recording(SCHUR, recording(PLANE, recording(
+        PCG6, tick, solves), planes, limit=1), analyses), k1_calls,
+        limit=1)(False)
+    row.update({
+        "eager_same_iterations": bool(torch.equal(res.iterations,
+                                                  eager.iterations)),
+        "eager_pose_max_diff_m": float((res.poses[:, :3, 3].double()
+                                        - eager.poses[:, :3, 3].double())
+                                       .norm(dim=1).max()),
+        "eager_rot_max_diff_rad": float(rotation_diff_rad(
+            res.poses[:, :3, :3], eager.poses[:, :3, :3]).max()),
+        "eager_bit_equal": bit_equal(res, eager)})
+    emit(row)
+    if not (row["aborted"] == 0 and row["ovf_max"] == 0
+            and row["eager_same_iterations"]
+            and row["eager_pose_max_diff_m"] <= 1e-6
+            and row["eager_rot_max_diff_rad"] <= 1e-6):
+        raise RuntimeError(f"the mixed fleet's tick failed its gates: {row}")
+    a = dict(zip(K1_OPERANDS, k1_calls[0]))
+    a["tgt"] = mindex.block.blocks          # the map's blocks, not a copy
+    del k1_calls
+    k1_row = check_k1("g_mix32_ragged_reuse_mask", a)
+    name = "B32_mix_first_tick"
+    rows = {PLANE.label: check_kernel(PLANE, name, planes,
+                                      launches=launches[PLANE.label]),
+            SCHUR.label: check_kernel(SCHUR, name, analyses,
+                                      launches=launches[SCHUR.label]),
+            PCG6.label: check_kernel(PCG6, name, solves)}
+    return k1_row, rows, launches
+
+
 def run(seed: int, device: str = "cuda"):
     from dcreg_tpu_torch.models.icp import ICPParams
     from dcreg_tpu_torch.models.icp_batch import (estimate_map_capacities,
@@ -2956,6 +3088,17 @@ def run(seed: int, device: str = "cuda"):
     schur_rows["B8_fleet_first_tick"] = check_kernel(
         SCHUR, "B8_fleet_first_tick", fleet_analyses,
         launches=schur_launches["fleet_tick"])
+    # the mixed fleet's first tick: 32 scans of their own sizes (counts)
+    k1_mix, mix_rows, mix_launches = run_mixed_tick(
+        seed, frames_s, known, mindex, world_t, params, device)
+    rows["g_mix32_ragged_reuse_mask"] = k1_mix
+    launches["mix_tick"] = mix_launches[tk.K1.label]
+    for kernel_rows, kernel_launches, kernel in (
+            (plane_rows, plane_launches, PLANE),
+            (schur_rows, schur_launches, SCHUR),
+            (pcg6_rows, pcg6_launches, PCG6)):
+        kernel_rows["B32_mix_first_tick"] = mix_rows[kernel.label]
+        kernel_launches["mix_tick"] = mix_launches[kernel.label]
     for graph in (None, False):
         held = {}
 

@@ -67,7 +67,11 @@ class BatchLoop:
 
       * ``load`` copies the per-call inputs into the state: source
         ``src`` ((N, 3), or (B, N, 3) per lane), ``R0``, ``t0``,
-        ``T_gt``;
+        ``T_gt``; with ``ragged`` (per lane only) also ``count`` (B,),
+        each lane's number of points: its first ``count`` rows are its
+        scan, the rest pads whose values nothing reads (the prologue
+        overwrites them with the lane's last point, the cull drops the
+        query blocks they fill, the tail counts no pad row);
       * ``prologue`` the static query-block prep, in reuse mode the cull
         and the pair list at the initial pose, and the loop state;
       * ``step`` one iteration for every lane still active (``iterate``)
@@ -86,13 +90,15 @@ class BatchLoop:
                  detection: DetectionMethod, handling: HandlingMethod,
                  params: ICPParams, num_pairs: int, num_supers: int,
                  max_per_query: int, initial_cull_radius, reuse_pair_list,
-                 device, per_lane: bool = False):
+                 device, per_lane: bool = False, ragged: bool = False):
         self.map_mode = isinstance(index, MapIndex)
         if self.map_mode and (num_supers <= 0 or max_per_query <= 0):
             raise ValueError("map mode needs num_supers and max_per_query")
         if per_lane and not (self.map_mode and reuse_pair_list > 0):
             raise ValueError("a source per lane needs map mode with a "
                              "reused pair list (reuse_pair_list > 0)")
+        if ragged and not per_lane:
+            raise ValueError("a point count per lane needs a source per lane")
         self.index, self.target = index, target_xyz
         self.mindex = index if self.map_mode else None
         self.bi = index.block if self.map_mode else index
@@ -102,7 +108,7 @@ class BatchLoop:
         self.num_pairs, self.num_supers = num_pairs, num_supers
         self.max_per_query = max_per_query
         self.reuse_pair_list = float(reuse_pair_list)
-        self.per_lane = per_lane
+        self.per_lane, self.ragged = per_lane, ragged
         self.reuse = self.map_mode and self.reuse_pair_list > 0 and (
             B == 1 or per_lane)
         self.radius = params.corr.search_radius
@@ -115,7 +121,7 @@ class BatchLoop:
     def key(self) -> tuple:
         mode = "reuse" if self.reuse else "map" if self.map_mode else "block"
         if self.per_lane:
-            mode = "reuse_lanes"
+            mode = "reuse_lanes_ragged" if self.ragged else "reuse_lanes"
         return ("icp_batch_so3", mode, self.B, self.N, self.nq,
                 self.num_pairs, self.num_supers, self.max_per_query,
                 self.detection, self.handling, self.params, self.r0,
@@ -134,6 +140,14 @@ class BatchLoop:
         src = S.src
         # ---- static query-block prep (body frame) ------------------------
         if self.per_lane:
+            if self.ragged:
+                # a lane's pad rows take its last point, so no pad value
+                # reaches the boxes, ``pmax`` or the search
+                last = torch.gather(src, 1, (S.count - 1)[:, None, None]
+                                    .expand(B, 1, 3))
+                pad = torch.arange(N, device=dev) >= S.count[:, None]
+                S.put("src", torch.where(pad[:, :, None], last, src))
+                src = S.src
             src_pad = torch.cat([src, src[:, -1:].expand(B, nq * QB - N, 3)],
                                 dim=1)
             src_q = src_pad.reshape(B, nq, QB, 3)
@@ -172,6 +186,11 @@ class BatchLoop:
                 S.slo, S.shi, S.R0, S.t0, mindex, sup_sel0, sup_ok0, r_list,
                 qbox=qbox0)
             rel0 = torch.any(rel_l0, dim=0)
+            if self.ragged:
+                # a query block past its lane's count holds pads alone
+                filled = (torch.arange(nq, device=dev) * QB
+                          < S.count[:, None]).reshape(B * nq)
+                rel0 = rel0 & filled[:, None]
             qid0, tid0, slot0, _, table0, ovf0, run_ovf0 = \
                 make_pair_list_slotted(rel0, self.num_pairs,
                                        self.max_per_query,
@@ -227,7 +246,8 @@ class BatchLoop:
             S.src, self.target, Rs, ts, sq_d5=d5row[:, :N],
             idx_kn=idx[:, :k, :N], params=params.corr,
             use_weight_derivative=params.use_weight_derivative,
-            weight_slope=params.corr.weight_slope)
+            weight_slope=params.corr.weight_slope,
+            count=S.count if self.ragged else None)
         with graphs.mark("degeneracy"):
             analysis = analyze(sysm.H, self.detection, params.thresholds,
                                fast=self.fast)

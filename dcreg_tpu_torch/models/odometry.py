@@ -329,7 +329,9 @@ class MapLoop:
     the same parts run one tick of S sensors: each lane's seed from its
     own two previous poses, the lanes' registrations in one, and the
     frame's analysis and output of every lane, written whole (``out.*``
-    with a leading (S,) axis; no rows, no frame index)."""
+    with a leading (S,) axis; no rows, no frame index).  A ragged
+    ``BatchLoop`` takes each lane's point count into the state with its
+    scan (``count``), as data: a tick with other counts replays."""
 
     def __init__(self, loop: BatchLoop, use_constant_velocity: bool,
                  frame_analysis_fast: bool, rows: int):
@@ -343,8 +345,10 @@ class MapLoop:
         return ("run_odometry_map", self.loop.key(), self.cv, self.fast,
                 self.rows)
 
-    def load(self, S, frame0, T0, T_prev) -> None:
+    def load(self, S, frame0, T0, T_prev, count=None) -> None:
         S.put("src", frame0)
+        if count is not None:
+            S.put("count", count)
         S.put("R_prev", T0[..., :3, :3])
         S.put("t_prev", T0[..., :3, 3])
         S.put("R_prev2", T_prev[..., :3, :3])
@@ -513,14 +517,15 @@ def _odometry_fleet_impl(scans, map_xyz, mindex, T0, T_prev, detection,
                          handling, params, num_pairs, num_supers,
                          max_per_query, initial_cull_radius, reuse_margin,
                          use_constant_velocity, frame_analysis_fast,
-                         device, graphed) -> MapOdometryResult:
+                         counts, device, graphed) -> MapOdometryResult:
     L, N = scans.shape[:2]
     loop = BatchLoop(mindex, map_xyz, L, N, detection, handling, params,
                      num_pairs, num_supers, max_per_query,
                      initial_cull_radius, reuse_margin, device,
-                     per_lane=True)
+                     per_lane=True, ragged=counts is not None)
     mloop = MapLoop(loop, use_constant_velocity, frame_analysis_fast, 1)
-    run, S = graphs.bind(mloop, lambda S: mloop.load(S, scans, T0, T_prev),
+    run, S = graphs.bind(mloop, lambda S: mloop.load(S, scans, T0, T_prev,
+                                                     counts),
                          graphed, "run_odometry_fleet", device)
     graphs.drive_lanes(run, S, params.max_iterations)
     with tracing.span("odometry.results"):
@@ -528,16 +533,31 @@ def _odometry_fleet_impl(scans, map_xyz, mindex, T0, T_prev, detection,
                                    for name in MapOdometryResult._fields))
 
 
-@tracing.calls("odometry.fleet_call", sensors=lambda scans, *_, **__:
-               len(scans))
+def _fleet_capacity(scans, *_, **__) -> int:
+    """A tick's rows, S x N, from the shape of ``scans``."""
+    shape = np.shape(scans)
+    return int(shape[0] * shape[1])
+
+
+def _fleet_points(scans, *_, counts=None, **__) -> int:
+    """A tick's points, from the host: the sum of ``counts``, else
+    every row."""
+    if counts is None:
+        return _fleet_capacity(scans)
+    return int(np.sum(np.asarray(counts)))
+
+
+@tracing.calls("odometry.fleet_call",
+               sensors=lambda scans, *_, **__: len(scans),
+               points=_fleet_points, capacity=_fleet_capacity)
 def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
                        detection=None, handling=None, icp_params=None,
                        num_supers: int = 0, max_per_query: int = 0,
                        num_pairs: int = 0, initial_cull_radius: float = 0.3,
                        reuse_margin: float = 0.2,
                        use_constant_velocity: bool = True,
-                       frame_analysis_fast: bool = True, device=None,
-                       graph=None) -> MapOdometryResult:
+                       frame_analysis_fast: bool = True, counts=None,
+                       device=None, graph=None) -> MapOdometryResult:
     """One tick of a fleet of S sensors localizing against one map-scale
     prior: per sensor, the constant-velocity seed from its own two last
     poses and a map-mode DCReg registration with a reused pair list, all
@@ -555,14 +575,21 @@ def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
     scans (S, N, 3) body-frame scans, each kd-block-sorted
     (``prepare_frames``); map_xyz (M, 3) the sorted map ``mindex`` was
     built over; T0 (S, 4, 4) each sensor's last pose, T_prev_init
-    (S, 4, 4) the one before it.  The capacities are per lane and must
-    cover every lane (``estimate_odometry_capacities`` over the frames
-    the sensors scan).  Returns a ``MapOdometryResult`` whose fields lead
+    (S, 4, 4) the one before it.  ``counts`` (S,) ints on the host, each
+    in 1..N, where the scans differ in size: N is then the fleet's
+    capacity, lane s's first ``counts[s]`` rows are its scan,
+    kd-block-sorted, and the rows after them are pads whose values do not
+    matter (each lane answers as its scan alone would; its ``fitness`` is
+    over its count).  The counts are data: a tick with other counts
+    replays the same graphs.  The capacities are per lane and must cover
+    every lane (``estimate_odometry_capacities`` over the scans the
+    sensors send).  Returns a ``MapOdometryResult`` whose fields lead
     with (S,), one row per sensor.  Runs as ``run_odometry_map`` does: on
-    the card the parts replay CUDA graphs keyed on S and the statics;
-    ``graph=False`` runs them eagerly, for checking only; on the CPU they
-    run eagerly.  Each call is an ``odometry.fleet_call`` span with the
-    sensor count."""
+    the card the parts replay CUDA graphs keyed on S, N, whether counts
+    are given, and the statics; ``graph=False`` runs them eagerly, for
+    checking only; on the CPU they run eagerly.  Each call is an
+    ``odometry.fleet_call`` span with the sensor count, the tick's points
+    (the sum of the counts) and its capacity (S x N)."""
     check_precise()
     dev = resolve_device(device)
     graphed = graphs.use_graphs(dev, graph)
@@ -583,6 +610,13 @@ def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
         raise ValueError(f"scans (S, N, 3) with T0 and T_prev_init "
                          f"(S, 4, 4); got {tuple(scans.shape)}, "
                          f"{tuple(T0.shape)}, {tuple(T_prev_init.shape)}")
+    if counts is not None:
+        host = np.asarray(counts)
+        if host.shape != (L,) or host.dtype.kind not in "iu" \
+                or host.min() < 1 or host.max() > scans.shape[1]:
+            raise ValueError(f"counts: ({L},) ints in 1..{scans.shape[1]}, "
+                             f"got {host!r}")
+        counts = torch.as_tensor(host, dtype=torch.int64, device=dev)
     return _odometry_fleet_impl(scans, map_xyz, mindex, T0, T_prev_init,
                                 detection, handling, icp_params,
                                 int(num_pairs), int(num_supers),
@@ -590,7 +624,8 @@ def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
                                 float(initial_cull_radius),
                                 float(reuse_margin),
                                 bool(use_constant_velocity),
-                                bool(frame_analysis_fast), dev, graphed)
+                                bool(frame_analysis_fast), counts, dev,
+                                graphed)
 
 
 def prepare_frames(frames, block: int = 128) -> np.ndarray:

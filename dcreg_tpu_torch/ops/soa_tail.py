@@ -117,20 +117,24 @@ def _eigh3_soa(sxx, sxy, sxz, syy, syz, szz):
 def batched_tail_system(source_xyz, target_xyz, Rs, ts, sq_d5, idx_kn,
                         params: CorrespondenceParams,
                         use_weight_derivative: bool = True,
-                        weight_slope: float = 0.9) -> GNSystem:
+                        weight_slope: float = 0.9,
+                        count=None) -> GNSystem:
     """Fused correspondence tail + GN assembly for all lanes.
 
     source_xyz (N, 3), or (B, N, 3) where each lane registers a source of
     its own; target_xyz (M, 3); Rs (B, 3, 3); ts (B, 3);
     sq_d5 (B, N) squared k-th neighbour distance (the radius gate);
-    idx_kn (B, k, N) neighbour indices, -1 where missing.  Returns a
-    GNSystem with leading (B,) dims.  Its two modules are marked
-    (``graphs.mark``): ``tail.planes`` and ``tail.system``."""
+    idx_kn (B, k, N) neighbour indices, -1 where missing; ``count``
+    (B,) int, where each lane of a (B, N, 3) source has its own number of
+    points: rows at or past it are pads, never valid, and ``fitness`` is
+    over the count.  Returns a GNSystem with leading (B,) dims.  Its two
+    modules are marked (``graphs.mark``): ``tail.planes`` and
+    ``tail.system``."""
     with graphs.mark("tail.planes"):
         plane = _plane_fit(target_xyz, idx_kn, params)
     with graphs.mark("tail.system"):
         return _gn_system(source_xyz, Rs, ts, sq_d5, *plane, params,
-                          use_weight_derivative, weight_slope)
+                          use_weight_derivative, weight_slope, count)
 
 
 def _plane_fit_plain(target_xyz, idx_kn, params: CorrespondenceParams):
@@ -278,9 +282,11 @@ def _plane_fit(target_xyz, idx_kn, params: CorrespondenceParams):
 
 def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,
                plane_ok, params: CorrespondenceParams,
-               use_weight_derivative: bool, weight_slope: float) -> GNSystem:
+               use_weight_derivative: bool, weight_slope: float,
+               count=None) -> GNSystem:
     """Residuals, robust weights and the GN rows at (Rs, ts) against the
-    fitted planes, reduced to H and g."""
+    fitted planes, reduced to H and g; rows at or past a lane's ``count``
+    (where given) are not valid."""
     dt = source_xyz.dtype
     N = source_xyz.shape[-2]
     per_lane = source_xyz.ndim == 3
@@ -292,6 +298,9 @@ def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,
     s = torch.clamp(1.0 - params.weight_slope * torch.abs(residual), min=0.0)
     weight_ok = s > params.min_weight
     in_radius = sq_d5 < params.search_radius ** 2
+    if count is not None:
+        in_radius = in_radius & (torch.arange(N, device=count.device)
+                                 < count[:, None])
     valid = in_radius & fit_ok & plane_ok & weight_ok
     s = torch.where(valid, s, 0.0)
 
@@ -328,7 +337,8 @@ def _gn_system(source_xyz, Rs, ts, sq_d5, nox, noy, noz, d_off, fit_ok,
     raw_sq = torch.where(valid, residual * residual, 0.0)
     rmse = torch.sqrt(torch.sum(raw_sq, dim=1)
                       / torch.clamp(n_valid, min=1).to(dt))
-    fitness = torch.sum(in_radius.to(dt), dim=1) / float(N)
+    fitness = torch.sum(in_radius.to(dt), dim=1) / (
+        float(N) if count is None else count.to(dt))
     objective = 0.5 * torch.sum(b * b, dim=1)
     return GNSystem(H=H, g=g, num_valid=n_valid, rmse=rmse,
                     fitness=fitness, objective=objective)

@@ -11,7 +11,8 @@ that split a profile of the loops by the program's own modules.
 * ``calls(name, **derived)`` makes each call of a function such a span,
   with the call's sequence number and args derived from the call's
   arguments (``odometry.call`` on ``run_odometry_map``;
-  ``odometry.fleet_call`` on ``run_odometry_fleet``, with ``sensors``).
+  ``odometry.fleet_call`` on ``run_odometry_fleet``, with ``sensors``,
+  ``points`` and ``capacity``).
 * ``replay(graph, **args)`` replays a captured graph under a
   ``graphs.replay`` span; inside ``record()`` two CUDA events of the
   recorder's pool bracket it on the replay's stream.

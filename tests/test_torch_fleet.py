@@ -391,8 +391,10 @@ def test_a_fleet_span_names_its_sensors(scene):
     with tracing.record() as rec:
         fleet_ticks(scene)
     calls = [s for s in rec.spans if s[0] == "odometry.fleet_call"]
+    rows = len(STARTS) * SCAN_POINTS          # no counts: every row
     assert [s[4] for s in calls] == [
-        {"call": calls[0][4]["call"] + k, "sensors": len(STARTS)}
+        {"call": calls[0][4]["call"] + k, "sensors": len(STARTS),
+         "points": rows, "capacity": rows}
         for k in range(TICKS)]
     reads = [s for s in rec.spans if s[0] == "graphs.done_read"]
     assert all(rec.spans[s[1]][0] == "odometry.fleet_call" for s in reads)
