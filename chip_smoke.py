@@ -265,7 +265,25 @@ def wall(fn):
 # names of the port's hand-written CUDA kernels (csrc/)
 PORT_KERNELS = ("block_knn_keys_kernel", "block_knn_merge_kernel",
                 "knn_candidates_kernel", "group_min_kernel", "pcg6_kernel",
-                "plane_fit_kernel", "schur6_kernel")
+                "plane_fit_kernel", "schur6_kernel", "loop_cond_kernel")
+
+
+def _counted():
+    from dcreg_tpu_torch.ops import block_knn, loop_cond, soa_tail
+    return (block_knn.K1, soa_tail.PLANE_FIT, loop_cond.LOOP_COND)
+
+
+# the kernels launched once per step of the map loop, whose counters a
+# profile holds against the kernels it saw (by label: the CUDA kernel)
+COUNTED_NAMES = {"K1": "block_knn_keys_kernel",
+                 "plane_fit": "plane_fit_kernel",
+                 "loop_cond": "loop_cond_kernel"}
+
+
+# the pair engines whose pass graph holds more than graphs.PASS_OPS device
+# ops at the harness's cap of 30 (a step of about 12,900 ops), so each
+# pass runs on the host (graphs.host_pass); O3D's (3,761) fits
+ON_THE_HOST = ("XICP", "XICP-EQ")
 
 
 # host calls of the CUDA runtime that launch work: kernels one by one, or
@@ -297,12 +315,52 @@ class Tally:
                 if n > at.get(kk, 0)}
 
 
+class Passes:
+    """The graph launches, passes on the card and host reads of a loop's
+    flag (``graphs.STATS``) since it was taken."""
+
+    def __init__(self):
+        from dcreg_tpu_torch import graphs
+        st = graphs.STATS
+        self.at = (st.replays, st.device_passes, st.host_reads)
+
+    def since(self) -> dict:
+        from dcreg_tpu_torch import graphs
+        st = graphs.STATS
+        now = (st.replays, st.device_passes, st.host_reads)
+        return dict(zip(("graph_launches", "device_passes", "host_reads"),
+                        (b - a for a, b in zip(self.at, now))))
+
+
+def pass_gates(what, passes, tally, n_passes, steps, device="cuda"):
+    """Gate a graphed run of ``n_passes`` passes that ran ``steps`` steps
+    (``passes``: a ``Passes``, ``tally``: a ``Tally``, both taken before
+    it): one graph launch and no host read of the loop's flag per pass,
+    and one launch of the condition kernel per step, each from a replay
+    (on the card; on the CPU the loop runs on the host).  Returns the
+    row."""
+    from dcreg_tpu_torch.ops.loop_cond import LOOP_COND
+    row = dict(passes.since(), passes=n_passes, steps=steps,
+               loop_cond_launches=tally.launches(LOOP_COND),
+               loop_cond_replayed=tally.replayed(LOOP_COND))
+    if device != "cpu" and not (
+            row["graph_launches"] == row["device_passes"] == n_passes
+            and row["host_reads"] == 0
+            and row["loop_cond_launches"] == row["loop_cond_replayed"]
+            == steps):
+        raise RuntimeError(f"{what}: not one graph launch and no host read "
+                           f"per pass, one condition launch per step: {row}")
+    return row
+
+
 def profile_window(name, fn, top=8):
     """Where the time of one call of ``fn`` goes: wall time, device-busy
     share (sum of kernel times over wall time), the port's own kernels,
     the kernels with the most device time and the host-side ops with the
     most self time, the CUDA kernels K1's wrapper ran per call, counted
-    by the profiler, K2's wrapper calls per kk, and the host's launch
+    by the profiler, K2's wrapper calls per kk, the launches the counters
+    of K1, plane_fit and loop_cond add up (``counted_launches``, by label;
+    a pass's steps count at ``graphs.settle``), and the host's launch
     calls (``LAUNCH_CALLS``: count and self ms).  Only
     events that ran on the card count as device time: a host op's own
     device total repeats its kernels' time; the profiler records the
@@ -318,6 +376,7 @@ def profile_window(name, fn, top=8):
         _, seconds = wall(fn)
     k1_calls = tally.launches(tk.K1)
     k2_calls = tally.by_kk(kn.K2)
+    counted = {k.label: tally.launches(k) for k in _counted()}
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -335,6 +394,7 @@ def profile_window(name, fn, top=8):
             "kernel_launches": sum(e.count for e in on_card),
             "port_kernels": [row(e, dev_us(e)) for e in ours],
             "k1_calls": k1_calls, "k2_calls_by_kk": k2_calls,
+            "counted_launches": counted,
             "k1_cuda_kernels_per_call": (k1_kernels / k1_calls
                                          if k1_calls else None),
             "host_launch_calls": {
@@ -1563,17 +1623,28 @@ def pair_harness(world, scenario, cfg, backend, device):
             if name in methods:
                 # a warm call first: the window holds no capture
                 runner.run_single_test(name, *methods[name])
-                held = {}
+                held, passes = {}, Passes()
                 prof = profile_window(
                     f"pair_{name.lower()}_profile_{scenario}_{backend}",
                     lambda: held.update(r=runner.run_single_test(
                         name, *methods[name])))
                 rates = launch_rates(prof, int(held["r"][0].iterations))
-                emit(dict(prof, **rates))
+                route = passes.since()
+                emit(dict(prof, **rates, route=route))
                 if device != "cpu" and name in ("XICP-EQ", "O3D") and \
                         rates["launch_calls_per_icp_iteration"] >= 1:
                     raise RuntimeError(f"graphed {name} made {rates} kernel "
                                        "launch calls per ICP iteration")
+                # XICP's pass graph is over graphs.PASS_OPS: it replays
+                # part by part, its host reading the done flag; the others
+                # run each pass on the card
+                on_host = name in ON_THE_HOST
+                if device != "cpu" and not (
+                        (route["device_passes"] == 0) == on_host
+                        and (route["host_reads"] > 0) == on_host):
+                    raise RuntimeError(f"graphed {name} took the wrong "
+                                       f"route (on the host: {on_host}): "
+                                       f"{route}")
         return summary, launches
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -2747,7 +2818,10 @@ def run_mixed_tick(seed, frames_s, known, mindex, world_t, params,
     reported); K1 against its twin on the first step's inputs (the
     ragged prologue's pair list and the live mask), plane_fit on the
     first step, schur6 and pcg6 on every call (``B32_mix_first_tick``).
-    Returns (K1's row, {kernel label: row}, {kernel label: launches})."""
+    Also gated: one graph launch and no host read for the tick, one
+    condition launch per step (``pass_gates``).  Returns (K1's row,
+    {kernel label: row}, {kernel label: launches}); the condition
+    kernel's row and launches under ``loop_cond``."""
     from dcreg_tpu_torch.models.odometry import run_odometry_fleet
     from dcreg_tpu_torch.ops import block_knn as tk
     from dcreg_tpu_torch.ops import degeneracy, soa_tail
@@ -2768,9 +2842,11 @@ def run_mixed_tick(seed, frames_s, known, mindex, world_t, params,
     K1, PLANE, PCG6, SCHUR = (tk.K1, soa_tail.PLANE_FIT, tsol.PCG6,
                               degeneracy.SCHUR6)
     tick()                                      # captures
-    tally = Tally()
+    tally, passes = Tally(), Passes()
     res = tick()
     steps = int(res.iterations.max())
+    loop_row = pass_gates("the mixed fleet's tick", passes, tally, 1, steps,
+                          device)
     want = {K1: steps, PLANE: steps, PCG6: steps, SCHUR: steps + 1}
     launches = {k.label: tally.launches(k) for k in want}
     replayed = {k.label: tally.replayed(k) for k in want}
@@ -2780,7 +2856,7 @@ def run_mixed_tick(seed, frames_s, known, mindex, world_t, params,
            "frames": lanes, "iterations": res.iterations.tolist(),
            "steps": steps, "launches": launches, "replayed": replayed,
            "aborted": int(res.aborted.sum()),
-           "ovf_max": int(res.pair_overflow.max())}
+           "ovf_max": int(res.pair_overflow.max()), "loop": loop_row}
     if not all(launches[k.label] == replayed[k.label] == n
                for k, n in want.items()):
         emit(row)
@@ -2815,7 +2891,9 @@ def run_mixed_tick(seed, frames_s, known, mindex, world_t, params,
                                       launches=launches[PLANE.label]),
             SCHUR.label: check_kernel(SCHUR, name, analyses,
                                       launches=launches[SCHUR.label]),
-            PCG6.label: check_kernel(PCG6, name, solves)}
+            PCG6.label: check_kernel(PCG6, name, solves),
+            "loop_cond": loop_row}
+    launches["loop_cond"] = loop_row["loop_cond_launches"]
     return k1_row, rows, launches
 
 
@@ -2952,8 +3030,12 @@ def run(seed: int, device: str = "cuda"):
     capture_s = graphs.CACHE.capture_seconds - cap0[1]
     held_mib = [(torch.cuda.memory_allocated() - mem0[0]) / 2 ** 20,
                 (torch.cuda.memory_reserved() - mem0[1]) / 2 ** 20]
-    tally = Tally()
+    tally, passes = Tally(), Passes()
     res, dt = wall(run_odom)
+    loop_rows = {"B1_map_pass": pass_gates(
+        "the map loop", passes, tally, FRAMES, int(res.iterations.sum()),
+        device)}
+    loop_launches = {"odometry": loop_rows["B1_map_pass"]["steps"]}
     launches["odometry"] = tally.launches(tk.K1)
     pcg6_launches["odometry"] = tally.launches(PCG6)
     plane_launches["odometry"] = tally.launches(PLANE)
@@ -2979,7 +3061,8 @@ def run(seed: int, device: str = "cuda"):
             "plane_fit_launches_replayed": plane_replayed,
             "schur6_launches": schur_launches["odometry"],
             "schur6_launches_replayed": schur_replayed["odometry"],
-            "icp_iterations": int(res.iterations.sum())}
+            "icp_iterations": int(res.iterations.sum()),
+            "loop": loop_rows["B1_map_pass"]}
     emit(odom)
     if not (bool(res.converged.all()) and odom["ovf_max"] == 0
             and te.mean() < 0.05 and te.max() < 0.10):
@@ -3062,8 +3145,12 @@ def run(seed: int, device: str = "cuda"):
             known_t[lanes], graph=graph, **fleet_args)
 
     fleet_tick()
-    tally = Tally()
+    tally, passes = Tally(), Passes()
     tick = fleet_tick()
+    loop_rows["B8_fleet_first_tick"] = pass_gates(
+        "the fleet's tick", passes, tally, 1, int(tick.iterations.max()),
+        device)
+    loop_launches["fleet_tick"] = loop_rows["B8_fleet_first_tick"]["steps"]
     plane_launches["fleet_tick"] = tally.launches(PLANE)
     schur_launches["fleet_tick"] = tally.launches(SCHUR)
     schur_replayed["fleet_tick"] = tally.replayed(SCHUR)
@@ -3093,12 +3180,13 @@ def run(seed: int, device: str = "cuda"):
         seed, frames_s, known, mindex, world_t, params, device)
     rows["g_mix32_ragged_reuse_mask"] = k1_mix
     launches["mix_tick"] = mix_launches[tk.K1.label]
-    for kernel_rows, kernel_launches, kernel in (
-            (plane_rows, plane_launches, PLANE),
-            (schur_rows, schur_launches, SCHUR),
-            (pcg6_rows, pcg6_launches, PCG6)):
-        kernel_rows["B32_mix_first_tick"] = mix_rows[kernel.label]
-        kernel_launches["mix_tick"] = mix_launches[kernel.label]
+    for kernel_rows, kernel_launches, label in (
+            (plane_rows, plane_launches, PLANE.label),
+            (schur_rows, schur_launches, SCHUR.label),
+            (pcg6_rows, pcg6_launches, PCG6.label),
+            (loop_rows, loop_launches, "loop_cond")):
+        kernel_rows["B32_mix_first_tick"] = mix_rows[label]
+        kernel_launches["mix_tick"] = mix_launches[label]
     for graph in (None, False):
         held = {}
 
@@ -3110,10 +3198,30 @@ def run(seed: int, device: str = "cuda"):
         prof.update(launch_rates(prof, int(held["res"].iterations.sum())))
         emit(prof)
         if graph is None and device != "cpu" and not (
-                prof["graph_launches"] > 0
+                prof["graph_launches"] == PROFILE_FRAMES
                 and prof["launch_calls_per_icp_iteration"] < 50):
             raise RuntimeError(f"the graphed loop's profile does not show "
-                               f"graph replay: {prof}")
+                               f"one graph launch per frame: {prof}")
+        if graph is None:
+            cond = [r for r in prof["port_kernels"]
+                    if "loop_cond_kernel" in r["name"]]
+            steps = int(held["res"].iterations.sum())
+            loop_rows["B1_map_pass"].update(
+                ms=cond[0]["ms"] / cond[0]["count"] if cond else None,
+                profiled_launches=cond[0]["count"] if cond else 0,
+                profiled_steps=steps)
+            # the counters' launches, a pass's steps counted at settle,
+            # against the kernels the profiler saw: one each per step
+            seen = {label: sum(r["count"] for r in prof["port_kernels"]
+                               if name in r["name"])
+                    for label, name in COUNTED_NAMES.items()}
+            if device != "cpu" and not (
+                    seen == prof["counted_launches"]
+                    == dict.fromkeys(COUNTED_NAMES, steps)):
+                raise RuntimeError(
+                    f"the graphed loop's profile saw {seen} launches of "
+                    f"K1, plane_fit and loop_cond, its counters "
+                    f"{prof['counted_launches']}, over {steps} steps")
 
     # ---- 3. Monte-Carlo batch, map mode, full telemetry ------------------
     def mc(graph=None):
@@ -3210,13 +3318,17 @@ def run(seed: int, device: str = "cuda"):
     if min(schur_launches.values()) <= 0:
         raise RuntimeError(f"schur6 not launched on every path: "
                            f"{schur_launches}")
+    for row in loop_rows.values():
+        row.setdefault("ms", None)
+        row.update(plain_ms=None, bound_ms=None, bound_by="latency")
     a = rows["a_map_B1_slotted_nomask"]
     ctx = {"world": world, "gt": gt, "frames": frames_s, "T_pre1": T_pre1,
            "T_pre2": T_pre2, "odom_poses": est.astype(np.float64),
            "mindex": mindex, "world_t": world_t, "caps": (S, G, P),
            "pcg6": (pcg6_rows, pcg6_launches),
            "plane_fit": (plane_rows, plane_launches),
-           "schur6": (schur_rows, schur_launches)}
+           "schur6": (schur_rows, schur_launches),
+           "loop_cond": (loop_rows, loop_launches)}
     return ctx, kernel_entry(
         tk.K1, "block_knn_keys", rows, launches, "a_map_B1_slotted_nomask",
         ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "B", "nsplit",
@@ -3273,7 +3385,7 @@ def main():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     from dcreg_tpu_torch import graphs
     from dcreg_tpu_torch.ops import knn_kernels as kn
-    from dcreg_tpu_torch.ops import degeneracy, soa_tail, solvers
+    from dcreg_tpu_torch.ops import degeneracy, loop_cond, soa_tail, solvers
     build_kernels()
     ctx, k1 = run(args.seed)
     k2, k3 = run_pair(args.seed)
@@ -3325,7 +3437,12 @@ def main():
         kernel_entry(degeneracy.SCHUR6, "analyze", schur_rows,
                      schur_launches, "B1_map_pass", (
                          "batch", "calls", "systems", "degenerate", "ms",
-                         "plain_ms", "bound_ms", "bound_by"))]})
+                         "plain_ms", "bound_ms", "bound_by")),
+        kernel_entry(loop_cond.LOOP_COND, "drive", *ctx["loop_cond"],
+                     "B1_map_pass", (
+                         "passes", "steps", "graph_launches", "host_reads",
+                         "loop_cond_launches", "loop_cond_replayed",
+                         "ms"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -99,32 +99,40 @@ def _compile(source, name, build_dir, command) -> dict:
 class Kernel:
     """One hand-written CUDA kernel behind its boundary function.
 
-    ``label`` names it in errors (K1, K2, K3, pcg6, plane_fit).  Its
-    ``source`` under ``csrc/`` builds into ``libdcreg_<source stem>.so``
-    (``build``; the kernels of one source share its library), whose C
-    function ``symbol`` takes ``argtypes``, a CUDA stream last, and
-    returns a cudaError; it is bound on first use.
+    ``label`` names it in errors (K1, K2, K3, pcg6, plane_fit, schur6,
+    loop_cond).  Its ``source`` under ``csrc/`` builds into
+    ``libdcreg_<source stem>.so`` (``build``; the kernels of one source
+    share its library), whose C function ``symbol`` takes ``argtypes``
+    (a CUDA stream last, where ``launch`` calls it) and returns a
+    cudaError; it is bound on first use (``function`` binds the
+    library's other C functions).
 
     A call ``kernel(*operands)`` is the boundary's one rule: operands on
     the CPU take the plain PyTorch twin ``twin``; on the card
     ``on_card(*operands)`` checks them and launches the kernel through
     ``launch``, or raises.  Nothing falls back.  Both take the boundary's
-    own arguments, the first a tensor on the call's device.
+    own arguments, the first a tensor on the call's device.  (loop_cond's
+    boundary is ``graphs.drive``, which decides itself between its
+    ``twin``, ``graphs.host_pass``, and ``ops/loop_cond.run_pass``; it has
+    no ``on_card``.)
 
     Counters: ``launches`` (through ``graphs.note_launch``: a launch
-    inside a captured graph counts once per replay), ``launches_replayed``
-    (those of them made by replays), ``launches_by_kk`` (per kk, where the
-    launch names one) and ``last_grid`` (the grid of the last launch,
-    where it records one).  ``through_the_twin`` and ``watching`` serve
-    checks of the kernel inside a whole program."""
+    inside a captured graph counts once per replay, and once per step a
+    pass on the card ran), ``launches_replayed`` (those of them made by
+    replays), ``launches_by_kk`` (per kk, where the launch names one) and
+    ``last_grid`` (the grid of the last launch, where it records one).
+    Reading one of the first three counts the steps of the passes driven
+    on the card since the last read first (``graphs.settle``).
+    ``through_the_twin`` and ``watching`` serve checks of the kernel
+    inside a whole program."""
 
     def __init__(self, label: str, source: str, symbol: str, argtypes,
                  twin, on_card):
         self.label, self.source = label, CSRC / source
         self.symbol, self.argtypes = symbol, argtypes
         self.twin, self.on_card = twin, on_card
-        self.launches = self.launches_replayed = 0
-        self.launches_by_kk = {}
+        self._launches = self._launches_replayed = 0
+        self._launches_by_kk = {}
         self.last_grid = None
         self._fn = None
         self._twin_route = False
@@ -137,11 +145,31 @@ class Kernel:
         return build_library(self.source, f"dcreg_{self.source.stem}",
                              self.label, BUILD_DIR)
 
+    @property
+    def launches(self) -> int:
+        graphs.settle()
+        return self._launches
+
+    @property
+    def launches_replayed(self) -> int:
+        graphs.settle()
+        return self._launches_replayed
+
+    @property
+    def launches_by_kk(self) -> dict:
+        graphs.settle()
+        return self._launches_by_kk
+
+    def function(self, symbol: str, argtypes):
+        """The C function ``symbol`` of the kernel's library (built
+        first), taking ``argtypes`` and returning a cudaError."""
+        fn = getattr(ctypes.CDLL(self.build()["path"]), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+
     def _bound(self):
         if self._fn is None:
-            fn = getattr(ctypes.CDLL(self.build()["path"]), self.symbol)
-            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
-            self._fn = fn
+            self._fn = self.function(self.symbol, self.argtypes)
         return self._fn
 
     def sm_count(self, device) -> int:
@@ -167,9 +195,19 @@ class Kernel:
     def __call__(self, *operands):
         if operands[0].device.type == "cpu" or self._twin_route:
             return self.twin(*operands)
-        for watch in self._watchers:
-            watch(*operands)
+        self.watch(*operands)
         return self.on_card(*operands)
+
+    @property
+    def on_twin_route(self) -> bool:
+        """Whether ``through_the_twin`` holds."""
+        return self._twin_route
+
+    def watch(self, *operands) -> None:
+        """Show the operands of a call on the card to the watchers
+        (``watching``)."""
+        for fn in self._watchers:
+            fn(*operands)
 
     @contextlib.contextmanager
     def through_the_twin(self):

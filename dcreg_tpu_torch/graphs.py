@@ -6,13 +6,19 @@ A compiled loop is split into named parts (prologue, step, epilogue) that
 read and write a ``State`` of fixed tensors in place.  On the card each
 part is captured once into a ``torch.cuda.CUDAGraph`` after an eager
 warm-up on a side stream (which also loads the kernel libraries), and
-every later call of the same statics replays the graphs: one
-``cudaGraphLaunch`` per part in place of the part's hundreds of kernel
-launches.  The host still reads one done flag per step, as the JAX
-``while_loop``'s condition does.  ``GraphCache`` keys the captures on
-their statics, including the address and layout of every tensor a graph
-reads in place (a second index of the same shapes gets graphs of its
-own), and keeps a few of them, least recently used first out.
+every later call of the same statics replays the graphs.  A loop with a
+step part runs a pass (prologue, steps, epilogue) as one
+``cudaGraphLaunch`` of a pass graph composed of the captured parts, with
+the condition of the JAX ``while_loop`` evaluated on the card by the
+hand-written ``loop_cond`` kernel (``ops/loop_cond``) between the steps:
+no host read inside a pass.  A loop whose parts hold collectives
+(``capture_error_mode`` "thread_local"), or whose pass graph would hold
+more than ``PASS_OPS`` device operations, replays part by part, and its
+host reads the flag between steps (``host_pass``).  ``GraphCache`` keys
+the captures on their statics, including the address and layout of every
+tensor a graph reads in place (a second index of the same shapes gets
+graphs of its own), and keeps a few of them, least recently used first
+out.
 
 On the CPU the same parts run eagerly (``run_eager``); nothing falls
 back from a graph to eager execution: a capture error raises, naming the
@@ -22,7 +28,10 @@ Kernel launches inside a capture are not launches: each
 ``cuda_build.Kernel`` reports its launches through ``note_launch``, which
 tallies them into the capture, and each replay adds the tally to the
 kernels' counters, so ``launches`` counts what the card ran (and
-``launches_replayed`` the part of it that came from replays).
+``launches_replayed`` the part of it that came from replays).  A pass on
+the card adds its prologue's and epilogue's tallies at once and its
+steps' when a counter is read (``settle``: the card's own count of the
+steps it ran, read then).
 
 Likewise a profiler range inside a part would run once, at capture, and
 never at a replay.  So a part names its modules with ``mark``: at every
@@ -32,9 +41,10 @@ created, in ``Graphs.modules[part]`` beside ``Graphs.nodes[part]``; a
 single-stream capture replays its nodes in that order, so
 ``tracing.module_times`` can split a profiled replay by the table.  A mark
 adds no node and reads nothing from the device.  Outside a capture it is
-a ``tracing.span``.  ``bind``, each replay and each read of the done flag
-in ``drive`` are spans too (``graphs.bind``, ``graphs.replay``,
-``graphs.done_read``), and ``STATS.host_reads`` counts the reads.
+a ``tracing.span``.  ``bind``, each replay (a pass: ``part="pass"``) and
+each host read of the loop's flag are spans too (``graphs.bind``,
+``graphs.replay``, ``graphs.done_read``); ``STATS`` counts the reads and
+the passes on the card.
 
 Every loop class (``BatchLoop``, ``MapLoop``, ``PairLoop``,
 ``EulerLoop``, ``VoxelLoop``, ``XICPLoop``, ``O3DLoop``,
@@ -43,10 +53,9 @@ the methods ``prologue``, ``step`` (where it has one) and ``epilogue``
 over a state, its parts (``parts``); ``bind`` gives the runner of its
 parts and their state, and ``drive`` runs one pass of the loop (a loop
 with no ``step`` part, as ``SuperLocLoop``, runs with ``max_iterations``
-0);
-``drive_lanes`` runs a loop of independent lanes (a fleet's ``MapLoop``).  A loop
-whose parts hold collectives captures in ``capture_error_mode``
-"thread_local" (``ShardedLoop``).
+0, one replay per part); ``drive_lanes`` runs a loop of independent
+lanes (a fleet's ``MapLoop``).  A loop whose parts hold collectives
+captures in ``capture_error_mode`` "thread_local" (``ShardedLoop``).
 """
 from __future__ import annotations
 
@@ -67,21 +76,57 @@ _RECORDING: list = []
 _SERIALS = itertools.count()
 
 
-@dataclasses.dataclass
 class Stats:
-    host_reads: int = 0          # reads of the done flag in ``drive``
+    """``host_reads``: the host's reads of a loop's flag (``host_pass``:
+    ``drive``'s done flag, ``drive_lanes``' ``left``); ``replays``: the
+    graph launches of ``Graphs`` (a part, or a whole pass);
+    ``device_passes``: the passes driven on the card in one launch;
+    ``device_steps``: the steps those passes ran, counted when read
+    (``settle``)."""
+
+    def __init__(self):
+        self.host_reads = 0
+        self.replays = 0
+        self.device_passes = 0
+        self._device_steps = 0
+
+    @property
+    def device_steps(self) -> int:
+        settle()
+        return self._device_steps
 
 
 STATS = Stats()
+# the configurations whose passes ran steps not yet counted, by serial
+_UNSETTLED: dict = {}
+# the most device operations a pass graph holds (its prologue, cap steps
+# each with the condition kernel, its epilogue; ``Graphs.loops``): the
+# largest pass measured to run under the profiler (CUPTI of torch 2.11,
+# driver 580, on an H100) with CUPTI attached before its instantiation,
+# XICP-EQ's at cap 20; at cap 30 (390,892 ops) the same pass hit an
+# illegal address there, and ran where the profiler came after its
+# instantiation or not at all.  A larger loop, as XICP's (a step of about
+# 12,900 ops) at cap 30, replays part by part.
+PASS_OPS = 262_052
 
 
 def _bump(kernel, kk, n: int, replayed: bool = False) -> None:
-    kernel.launches += n
+    kernel._launches += n
     if replayed:
-        kernel.launches_replayed += n
+        kernel._launches_replayed += n
     if kk is not None:
-        by_kk = kernel.launches_by_kk
+        by_kk = kernel._launches_by_kk
         by_kk[kk] = by_kk.get(kk, 0) + n
+
+
+def settle() -> None:
+    """Count the steps of the passes driven on the card since the last
+    settle into the launch counters of the kernels their steps launch
+    (the condition kernel's too) and ``STATS.device_steps``: one read of
+    each configuration's step count from the card, after a synchronize.
+    Reading a launch counter settles first; no call of the program does."""
+    while _UNSETTLED:
+        _UNSETTLED.popitem()[1].settle()
 
 
 def note_launch(kernel, kk=None) -> None:
@@ -276,6 +321,15 @@ def run_eager(parts: dict):
     return lambda name: parts[name]()
 
 
+def loops_on_card(parts: dict, capture_error_mode: str) -> bool:
+    """Whether a configuration of these parts runs its passes on the card
+    in one launch: it has a prologue, a step and an epilogue, and no
+    collectives (captured in "global" mode; NCCL inside a conditional
+    node has never run here), else it replays part by part."""
+    return capture_error_mode == "global" and \
+        {"prologue", "step", "epilogue"} <= parts.keys()
+
+
 class Graphs:
     """The captured parts of one static configuration, sharing one memory
     pool and replayed in the order they were captured; ``state`` holds
@@ -283,18 +337,30 @@ class Graphs:
     launches each replay of that part counts, ``nodes[name]`` its device
     operations and ``modules[name]`` its marks' ranges over them, which
     ``tracing.module_times`` reads through ``tracing.GRAPHS`` under
-    ``serial``; ``seconds`` the warm-up and capture time;
-    ``capture_error_mode`` goes to ``torch.cuda.graph``."""
+    ``serial``; ``seconds`` the warm-up and capture time (and the pass
+    graphs' instantiation); ``capture_error_mode`` goes to
+    ``torch.cuda.graph``.
+
+    ``looped`` (``loops_on_card``): the configuration runs a pass that
+    fits ``PASS_OPS`` (``loops``) on the card in one launch
+    (``run_pass``) of a pass graph per cap and rule
+    (``passes``, built by ``ops/loop_cond`` from the captured parts, which
+    are instantiated on their own only where replayed part by part);
+    ``step_count``, a device counter, counts the steps its passes ran."""
 
     serial = None          # of an instance built without ``__init__``
+    looped = False
 
     def __init__(self, label: str, state: State, parts: dict, device,
                  capture_error_mode: str = "global"):
         self.label, self.state = label, state
+        self.device = torch.device(device)
         self.graphs = {}
         self.launches = {}
         self.nodes, self.modules = {}, {}
         self.serial = next(_SERIALS)
+        self.looped = loops_on_card(parts, capture_error_mode)
+        self.passes, self.step_count, self._counted = {}, None, 0
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -305,7 +371,7 @@ class Graphs:
         cur.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
         for name, fn in parts.items():
-            g = torch.cuda.CUDAGraph()
+            g = torch.cuda.CUDAGraph(keep_graph=True)
             cap = Capture()
             _RECORDING.append(cap)
             try:
@@ -318,17 +384,60 @@ class Graphs:
                                    f"{name!r}, failed: {exc}") from exc
             finally:
                 _RECORDING.pop()
+            if not self.looped:
+                g.instantiate()
             self.graphs[name] = g
             self.launches[name] = cap
             self.modules[name] = [tuple(m) for m in cap.modules]
+        if self.looped:
+            self.step_count = torch.zeros(1, dtype=torch.int64,
+                                          device=device)
         tracing.GRAPHS[self.serial] = self
         torch.cuda.synchronize(device)
         self.seconds = time.perf_counter() - t0
 
+    def loops(self, cap: int) -> bool:
+        """Whether a pass of at most ``cap`` steps runs on the card in one
+        launch: the configuration is looped and the pass graph holds at
+        most ``PASS_OPS`` device operations."""
+        n = self.nodes
+        return self.looped and cap > 0 and n["prologue"] + n["epilogue"] \
+            + cap * (n["step"] + 1) <= PASS_OPS
+
     def __call__(self, name: str) -> None:
+        """Replay the part ``name`` (a looped configuration's parts are
+        instantiated at their first replay)."""
         tracing.replay(self.graphs[name], part=name, graphs=self.serial)
+        STATS.replays += 1
+        self._count(name)
+
+    def run_pass(self, pass_graph) -> None:
+        """Launch one pass graph (``ops/loop_cond``) of this
+        configuration: a ``graphs.replay`` span of part "pass"; the
+        prologue's and epilogue's launches count now, the steps' at the
+        next ``settle``."""
+        tracing.replay(pass_graph, part=tracing.PASS, graphs=self.serial)
+        self._count("prologue")
+        self._count("epilogue")
+        STATS.replays += 1
+        STATS.device_passes += 1
+        _UNSETTLED[self.serial] = self
+
+    def settle(self) -> None:
+        """Count the steps this configuration's passes ran since its last
+        settle (``graphs.settle``)."""
+        from .ops.loop_cond import LOOP_COND
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        total = int(self.step_count.item())
+        k, self._counted = total - self._counted, total
+        self._count("step", k)
+        _bump(LOOP_COND, None, k, replayed=True)
+        STATS._device_steps += k
+
+    def _count(self, name: str, times: int = 1) -> None:
         for (wrapper, kk), n in self.launches[name].items():
-            _bump(wrapper, kk, n, replayed=True)
+            _bump(wrapper, kk, n * times, replayed=True)
 
 
 class GraphCache:
@@ -350,9 +459,15 @@ class GraphCache:
 
     def discard(self, key) -> None:
         """Drop the entry of ``key``, if any."""
-        if isinstance(self._entries.pop(key, None), Graphs):
-            # a replay of it may still be queued on the card
+        self._drop(self._entries.pop(key, None))
+
+    @staticmethod
+    def _drop(entry) -> None:
+        if isinstance(entry, Graphs):
+            # a replay of it may still be queued on the card; its passes'
+            # steps are counted before it goes
             torch.cuda.synchronize()
+            settle()
 
     def lookup(self, key, load, build):
         """The entry of ``key``, its inputs refilled by ``load(state)``.
@@ -362,10 +477,7 @@ class GraphCache:
         entry = self._entries.pop(key, None)
         if entry is None:
             while len(self._entries) >= self.max_entries:
-                old = self._entries.popitem(last=False)[1]
-                if isinstance(old, Graphs):
-                    # a replay of it may still be queued on the card
-                    torch.cuda.synchronize()
+                self._drop(self._entries.popitem(last=False)[1])
             state = State()
             load(state)
             entry = build(state)
@@ -397,37 +509,55 @@ def bind(loop, load, graphed: bool, label: str, device):
         return entry, entry.state
 
 
-def drive(run, S, max_iterations: int) -> None:
+def drive(run, S, max_iterations: int):
     """One pass of a compiled loop: the prologue, steps until the state's
-    ``done`` flag is set (one host read per step, as the JAX
-    ``while_loop``'s condition) or ``max_iterations`` steps ran, the
-    epilogue.  ``run(name)`` runs or replays a part."""
-    run("prologue")
-    for it in range(max_iterations):
-        if it:
-            STATS.host_reads += 1
-            with tracing.span("graphs.done_read"):
-                done = bool(S.done)               # one host sync per trip
-            if done:
-                break
-        run("step")
-    run("epilogue")
+    ``done`` flag is set (the JAX ``while_loop``'s condition, tested
+    after each step) or ``max_iterations`` steps ran, the epilogue.
+    ``run(name)`` runs or replays a part; a ``Graphs`` whose pass fits
+    (``Graphs.loops``) runs it on the card in one launch
+    (``ops/loop_cond``), any other runner on the host (``host_pass``)."""
+    return _drive(run, S, max_iterations, "done")
 
 
-def drive_lanes(run, S, max_iterations: int) -> None:
+def drive_lanes(run, S, max_iterations: int):
     """``drive`` for a loop of independent lanes whose step writes
     ``left``, (lanes still running, lanes aborted or over their pair
-    list): one host read of it after each step, until no lane runs or
-    ``max_iterations`` steps ran; then the epilogue."""
+    list): steps until no lane runs or ``max_iterations`` steps ran; then
+    the epilogue."""
+    return _drive(run, S, max_iterations, "left")
+
+
+def _drive(run, S, cap: int, rule: str):
+    # the one decision: a pass on the card, or the condition kernel's
+    # plain twin (also where ``LOOP_COND.through_the_twin`` holds)
+    from .ops import loop_cond
+    if isinstance(run, Graphs) and run.loops(cap) \
+            and not loop_cond.LOOP_COND.on_twin_route:
+        return loop_cond.run_pass(run, cap, rule)
+    return loop_cond.LOOP_COND.twin(run, S, cap, rule)
+
+
+def host_pass(run, S, cap: int, rule: str) -> None:
+    """One pass with the loop on the host, part by part: the condition
+    kernel's plain twin.  Each read of the state's flag is one host sync,
+    a ``graphs.done_read`` span counted in ``STATS.host_reads``: for rule
+    "done" (``drive``) before every step but the first, stopping once it
+    is set; for "left" (``drive_lanes``) after every step, stopping once
+    no lane runs; at most ``cap`` steps."""
     run("prologue")
-    for _ in range(max_iterations):
+    for it in range(cap):
+        if rule == "done" and it and _read(lambda: bool(S.done)):
+            break
         run("step")
-        STATS.host_reads += 1
-        with tracing.span("graphs.done_read"):
-            running = S.left.tolist()[0]          # one host sync per step
-        if not running:
+        if rule == "left" and not _read(lambda: S.left.tolist()[0]):
             break
     run("epilogue")
+
+
+def _read(flag):
+    STATS.host_reads += 1
+    with tracing.span("graphs.done_read"):
+        return flag()
 
 
 def detached(tree):

@@ -8,8 +8,9 @@ full per-iteration telemetry is reconstructed from it afterwards as one
 batched pass over the iterations (and the lanes, in the batched engine).
 The JAX ``jit`` over a ``while_loop`` is a prologue, a step and an
 epilogue over fixed state tensors (``PairLoop``), captured as CUDA graphs
-on the card and replayed (``graphs``); the host reads the done flag
-(converged | aborted) once per step.
+on the card and replayed (``graphs``): a pass is one launch, the done
+flag (converged | aborted) tested on the card after each step
+(``ops/loop_cond``), as the ``while_loop``'s condition.
 """
 from __future__ import annotations
 
@@ -255,7 +256,7 @@ class PairLoop(PairInputs):
         history and the device-side iteration counter ``k``;
       * ``step`` one iteration (``iterate``), the history row ``k``
         written through a comparison mask, the pose update and the
-        ``done`` flag the host reads once per step;
+        ``done`` flag the loop's condition reads after each step;
       * ``epilogue`` ``H_last`` gathered at ``k - 1``, the telemetry
         pass (or the empty log) and the covariance.
 

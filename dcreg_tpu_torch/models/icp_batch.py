@@ -7,8 +7,10 @@ all lanes' 5-NN queries; the SoA tail, Schur analysis, PCG solve and
 boxplus run batched over lanes.  The JAX ``jit`` over a ``while_loop``
 with per-lane freeze is a prologue, a step and an epilogue over fixed
 state tensors (``BatchLoop``), captured as CUDA graphs on the card and
-replayed (``graphs``); the host reads the done flag
-``all(converged | aborted)`` once per step, and each lane freezes under
+replayed (``graphs``): a pass is one launch in which the card tests the
+done flag ``all(converged | aborted)`` after each step (``ops/loop_cond``;
+the host loop of ``graphs.host_pass`` where the parts run eagerly), and
+each lane freezes under
 the JAX rule, so per-lane iteration counts are the JAX engine's.
 
 Requirements as in the JAX module: source/target spatially sorted, the
@@ -76,9 +78,10 @@ class BatchLoop:
         and the pair list at the initial pose, and the loop state;
       * ``step`` one iteration for every lane still active (``iterate``)
         and the state update, writing the history at the device-side
-        iteration counter ``it`` and setting the ``done`` flag the host
-        reads once per step (per lane: ``left``, the lanes still running
-        and those aborted or over their pair list, ``graphs.drive_lanes``);
+        iteration counter ``it`` and setting the ``done`` flag the loop's
+        condition reads after each step (per lane: ``left``, the lanes
+        still running and those aborted or over their pair list,
+        ``graphs.drive_lanes``);
       * ``epilogue`` the reuse guard, ``H_last``, and the telemetry pass
         or the covariance.
 
@@ -386,9 +389,9 @@ class BatchLoop:
         if not self.per_lane:
             S.put("done", torch.all(conv_new | abt_new))
             return
-        # what the host reads after each step: lanes still running, and
-        # lanes aborted or over their pair list (the reuse guard as
-        # ``finish`` will count it)
+        # what the loop's condition reads after each step: lanes still
+        # running, and lanes aborted or over their pair list (the reuse
+        # guard as ``finish`` will count it)
         bad = abt_new | (S.ovf > 0) | (2.0 * S.cum_move > self.reuse_pair_list)
         S.put("left", torch.stack([
             torch.sum((~(conv_new | abt_new)).to(torch.int32)),

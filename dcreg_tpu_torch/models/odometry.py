@@ -569,8 +569,9 @@ def run_odometry_fleet(scans, mindex, map_xyz, T0, T_prev_init,
     a capacity of its own (``num_pairs`` pairs per lane), its own live
     mask, Schur test, PCG and frame analysis.  A lane that converges
     stops moving; one that aborts or overflows changes no other lane's
-    answer; the step replays until every lane is done, with one host read
-    per step (``graphs.drive_lanes``).
+    answer; the step runs until every lane is done, on the card a tick in
+    one launch with the test between steps on the card
+    (``graphs.drive_lanes``, ``ops/loop_cond``).
 
     scans (S, N, 3) body-frame scans, each kd-block-sorted
     (``prepare_frames``); map_xyz (M, 3) the sorted map ``mindex`` was

@@ -231,7 +231,8 @@ def optimize_pose_graph(poses0, edges: PoseGraphEdges, prior_idx=None,
     pinned at its initial value with information 1e8 I (the gauge).  Stops
     after ``max_gn_iters`` steps or at a step with |dx| < tol W; a step
     that is not finite is dropped.  On the card the steps (``PoseGraphLoop``)
-    replay CUDA graphs, with one host read per step; ``graph=False`` runs
+    replay CUDA graphs, a pass in one launch with the stop test on the
+    card (``ops/loop_cond``); ``graph=False`` runs
     them eagerly, and on the CPU they run eagerly and ``graph=True``
     raises."""
     check_precise()

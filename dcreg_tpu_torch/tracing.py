@@ -18,8 +18,9 @@ that split a profile of the loops by the program's own modules.
   recorder's pool bracket it on the replay's stream.
 * ``module_times(prof)`` splits the device operations of each replay in a
   profile by the module table its part recorded at capture
-  (``graphs.mark``); ``idle_gaps(prof)`` puts the device's idle gaps down
-  to the innermost program span that was open in them.
+  (``graphs.mark``), a pass's by its prologue's, steps' and epilogue's;
+  ``idle_gaps(prof)`` puts the device's idle gaps down to the innermost
+  program span that was open in them.
 
 Nothing here turns itself on: no environment variable, option or
 configuration field.  Tracing runs only inside ``record()`` or under a
@@ -46,6 +47,7 @@ GRAPHS = weakref.WeakValueDictionary()
 # CUDA event pairs of a ``record()`` block: the replays it can time
 POOL = 4096
 REPLAY = "graphs.replay"
+PASS = "pass"              # the part of a replay that runs a whole pass
 UNMARKED = "(unmarked)"
 
 
@@ -263,7 +265,13 @@ def split_replays(host, dev, graphs) -> dict:
     at capture} and ``modules`` {part: [(module, first op, end op)]}) and
     the count equals the part's ``nodes``, the i-th is put down to the
     module whose range holds i (the innermost mark), else the replay is
-    returned as unattributed.  Returns {"parts":
+    returned as unattributed.  A replay of part "pass" (a pass on the
+    card, ``ops/loop_cond``) runs the prologue, k steps each followed by
+    the condition kernel, and the epilogue: where its count is n_p +
+    k (n_s + 1) + n_e for some k >= 1, it counts as one replay of the
+    prologue, k of the step (the condition kernel is the step's
+    ``UNMARKED`` op past its nodes) and one of the epilogue, each split
+    by its table.  Returns {"parts":
     {"<label>.<part>": {"replays", "seconds", "ops",
     "modules": {module: {"seconds", "ops"}}}}, "unattributed": {"replays",
     "seconds", "ops"}, "eager": {"seconds", "ops"} (device operations of
@@ -285,30 +293,37 @@ def split_replays(host, dev, graphs) -> dict:
             eager[0] += (d[2] - d[1]) * 1e-9
             eager[1] += 1
     parts, lost, labels = {}, [0, 0.0, 0], {}
-    for corr, args in launches.items():
-        ops = by_launch.get(corr, [])
-        secs = sum(d[2] - d[1] for d in ops) * 1e-9
-        g = graphs.get(_int(args.get("graphs")))
-        part = args.get("part")
-        if g is None or len(ops) != g.nodes.get(part):
-            lost[0] += 1
-            lost[1] += secs
-            lost[2] += len(ops)
-            continue
+
+    def attribute(g, part, ops, n):
         key = f"{g.label}.{part}"
         p = parts.setdefault(key, {"replays": 0, "seconds": 0.0, "ops": 0,
                                    "modules": {}})
         p["replays"] += 1
-        p["seconds"] += secs
+        p["seconds"] += sum(d[2] - d[1] for d in ops) * 1e-9
         p["ops"] += len(ops)
-        lab = labels.get((id(g), part))
+        lab = labels.get((id(g), part, n))
         if lab is None:
-            lab = labels[(id(g), part)] = _op_modules(
-                g.nodes[part], g.modules.get(part, ()))
+            lab = labels[(id(g), part, n)] = _op_modules(
+                n, g.modules.get(part, ()))
         for d, m in zip(ops, lab):
             mm = p["modules"].setdefault(m, {"seconds": 0.0, "ops": 0})
             mm["seconds"] += (d[2] - d[1]) * 1e-9
             mm["ops"] += 1
+
+    for corr, args in launches.items():
+        ops = by_launch.get(corr, [])
+        g = graphs.get(_int(args.get("graphs")))
+        part = args.get("part")
+        pieces = None if g is None else _pieces(g.nodes, part, len(ops))
+        if pieces is None:
+            lost[0] += 1
+            lost[1] += sum(d[2] - d[1] for d in ops) * 1e-9
+            lost[2] += len(ops)
+            continue
+        at = 0
+        for name, n in pieces:
+            attribute(g, name, ops[at:at + n], n)
+            at += n
     total = sum(d[2] - d[1] for d in dev) * 1e-9
     return {"parts": parts,
             "unattributed": {"replays": lost[0], "seconds": lost[1],
@@ -322,6 +337,25 @@ def _int(text):
         return int(text)
     except (TypeError, ValueError):
         return None
+
+
+def _pieces(nodes: dict, part, count: int):
+    """The replays, [(part, ops)] in order, that a launch of ``part``
+    with ``count`` device ops holds, by the parts' node counts
+    ``nodes``; None where the count fits none.  A "pass" holds the
+    prologue, k >= 1 steps of one op more each (the condition kernel)
+    and the epilogue."""
+    if part != PASS:
+        return [(part, count)] if count == nodes.get(part) else None
+    try:
+        n_p, n_s, n_e = (nodes[p] for p in ("prologue", "step", "epilogue"))
+    except KeyError:
+        return None
+    k, rest = divmod(count - n_p - n_e, n_s + 1)
+    if k < 1 or rest:
+        return None
+    return [("prologue", n_p)] + [("step", n_s + 1)] * k \
+        + [("epilogue", n_e)]
 
 
 def _op_modules(n: int, modules) -> list:

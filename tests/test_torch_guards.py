@@ -13,13 +13,14 @@ import pytest
 from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 
-from dcreg_tpu_torch import cuda_build
+from dcreg_tpu_torch import cuda_build, graphs
 from dcreg_tpu_torch.models import icp_batch as tib
 from dcreg_tpu_torch.models import odometry as todo
 from dcreg_tpu_torch.models.icp import ICPParams
 from dcreg_tpu_torch.ops import block_knn as tk
 from dcreg_tpu_torch.ops import block_sparse as tbs
 from dcreg_tpu_torch.ops import degeneracy as tdeg
+from dcreg_tpu_torch.ops import loop_cond
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dcreg_tpu_torch").rglob("*.py")) + \
@@ -107,7 +108,7 @@ def _device_inputs(device):
             e(P, dt=torch.int32), e(P, dt=torch.int32))
 
 
-KERNELS = ("K1", "K2", "K3", "pcg6", "plane_fit", "schur6")
+KERNELS = ("K1", "K2", "K3", "pcg6", "plane_fit", "schur6", "loop_cond")
 NO_NVCC = (RuntimeError, "nvcc not found")
 
 
@@ -153,6 +154,9 @@ def _boundary(label, device):
             (lambda: solvers.solve_pcg_fast(H, g, a,
                                             tdeg.DegeneracyThresholds()),
              (ValueError, "CUDA device"))]
+    if label == "loop_cond":
+        return loop_cond.LOOP_COND, [
+            (lambda: graphs.drive(*_looped_pass(device)), NO_NVCC)]
     if label == "schur6":
         H = (torch.eye(6).expand(2, 6, 6) * torch.arange(1.0, 7.0)).to(device)
         return tdeg.SCHUR6, [
@@ -165,6 +169,30 @@ def _boundary(label, device):
     return soa_tail.PLANE_FIT, [
         (lambda: soa_tail._plane_fit(t, idx, params),
          (ValueError, "CUDA device"))]
+
+
+def _looped_pass(device):
+    """The operands of ``graphs.drive``, the condition kernel's boundary,
+    for one pass of 3 steps: on the CPU the eager runner of three parts
+    that do nothing (the program's runner there); elsewhere a looped
+    configuration built without a card (its parts replay nothing) on
+    ``device``; the state's done flag is set."""
+    class Part:
+        def replay(self):
+            pass
+
+    names = ("prologue", "step", "epilogue")
+    state = graphs.State()
+    state.done = torch.ones((), dtype=torch.bool, device=device)
+    if device == "cpu":
+        return graphs.run_eager({n: lambda: None for n in names}), state, 3
+    g = graphs.Graphs.__new__(graphs.Graphs)
+    g.label, g.device = "fake", torch.device(device)
+    g.looped, g.passes, g.state = True, {}, state
+    g.graphs = {n: Part() for n in names}
+    g.nodes = {n: 1 for n in names}
+    g.launches = {n: {} for n in names}
+    return g, state, 3
 
 
 def _counts(kernel):

@@ -8,11 +8,18 @@
   ICP iteration but the first, plus the read that finds the frame done:
   ``iters - [iters == max_iterations]`` per frame.
 * ``tracing.split_replays`` splits synthetic replays by a module table and
-  leaves a replay whose operation count differs from its part's unsplit.
+  leaves a replay whose operation count differs from its part's unsplit;
+  a pass replay (``part="pass"``) splits into its prologue, its k steps
+  and its epilogue where its count fits some k.
+* A pass on the card (``ops/loop_cond``) counts its steps' launches from
+  the card's step count when a counter is read, and reads nothing on the
+  host; a configuration whose parts hold collectives replays part by
+  part (fakes of a configuration, no card).
 * ``graphs.mark`` outside a capture adds nothing to any table; under a
   capture its ranges follow the capture's operation count.  The card's
   own capture is checked by the one test marked ``chip``.
 """
+import collections
 from types import SimpleNamespace
 
 import numpy as np
@@ -21,10 +28,11 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from dcreg_tpu_torch import graphs, tracing
+from dcreg_tpu_torch import cuda_build, graphs, tracing
 from dcreg_tpu_torch.models import odometry as todo
 from dcreg_tpu_torch.models.icp import ICPParams
 from dcreg_tpu_torch.ops import block_sparse as tbs
+from dcreg_tpu_torch.ops import loop_cond
 
 
 # --------------------------------------------------------------------------
@@ -247,6 +255,185 @@ def test_a_replay_of_an_unknown_configuration_is_unattributed():
     assert out["parts"] == {}
     assert out["unattributed"]["replays"] == 3
     assert out["unattributed"]["ops"] == 11
+
+
+# --------------------------------------------------------------------------
+# a pass on the card: its split, its counters, its routing
+# --------------------------------------------------------------------------
+
+PASS_TABLE = SimpleNamespace(
+    label="run_odometry_map",
+    nodes={"prologue": 2, "step": 3, "epilogue": 2},
+    modules={"prologue": [("seed", 0, 2)],
+             "step": [("search", 0, 2), ("solve", 2, 3)],
+             "epilogue": [("analysis", 1, 2)]})
+
+
+def _pass_profile(counts):
+    """Host and device events of one pass replay per count in ``counts``
+    (its device operations, op i lasting i + 1 ns), on one stream."""
+    host, dev = [], []
+    for j, ops in enumerate(counts):
+        t, corr = 100_000 * j, 200 + j
+        host.append(("graphs.replay(part=pass, graphs=9)", t, t + 50, 0,
+                     True))
+        host.append(("cudaGraphLaunch", t + 5, t + 45, corr, False))
+        for i in range(ops):
+            dev.append((f"op_{i}", t + 100 + 10 * i, t + 101 + 11 * i,
+                        corr))
+    return host, dev
+
+
+@pytest.mark.parametrize("k", [1, 3, 30])
+def test_a_pass_splits_into_prologue_steps_and_epilogue(k):
+    n = 2 + 4 * k + 2
+    out = tracing.split_replays(*_pass_profile([n]), {9: PASS_TABLE})
+    parts = out["parts"]
+    assert out["unattributed"]["replays"] == 0
+    assert sorted(parts) == ["run_odometry_map.epilogue",
+                             "run_odometry_map.prologue",
+                             "run_odometry_map.step"]
+    pro, step = parts["run_odometry_map.prologue"], \
+        parts["run_odometry_map.step"]
+    epi = parts["run_odometry_map.epilogue"]
+    assert (pro["replays"], step["replays"], epi["replays"]) == (1, k, 1)
+    assert (pro["ops"], step["ops"], epi["ops"]) == (2, 4 * k, 2)
+    # the condition kernel, past the step's nodes, is the step's unmarked op
+    assert {m: v["ops"] for m, v in step["modules"].items()} == {
+        "search": 2 * k, "solve": k, tracing.UNMARKED: k}
+    assert pro["modules"]["seed"]["ops"] == 2
+    assert epi["modules"] == {
+        tracing.UNMARKED: {"seconds": pytest.approx((n - 1) * 1e-9),
+                           "ops": 1},
+        "analysis": {"seconds": pytest.approx(n * 1e-9), "ops": 1}}
+    # op i of the pass lasts i + 1 ns: step j's search ops are 4j - 2 and
+    # 4j - 1
+    assert step["modules"]["search"]["seconds"] == pytest.approx(
+        sum(8 * j - 1 for j in range(1, k + 1)) * 1e-9)
+    assert sum(p["seconds"] for p in parts.values()) == pytest.approx(
+        out["device"]["seconds"])
+
+
+@pytest.mark.parametrize("ops", [0, 4, 7, 2 + 4 + 2 + 3])
+def test_a_pass_whose_count_fits_no_step_count_is_unattributed(ops):
+    out = tracing.split_replays(*_pass_profile([ops, 12]), {9: PASS_TABLE})
+    assert out["unattributed"]["replays"] == 1
+    assert out["unattributed"]["ops"] == ops
+    assert out["parts"]["run_odometry_map.step"]["replays"] == 2
+
+
+def _fake_configuration(mode, log, flag):
+    """A configuration built without a card: parts whose replays append
+    their names to ``log``, each counting launches of one kernel, and
+    the state's done flag ``flag``."""
+    loop_parts = {"prologue": None, "step": None, "epilogue": None}
+
+    class Part:
+        def __init__(self, name):
+            self.name = name
+
+        def replay(self):
+            log.append(self.name)
+
+    wrapper = cuda_build.Kernel("fake", "fake.cu", "fake", [], twin=None,
+                                on_card=None)
+    g = graphs.Graphs.__new__(graphs.Graphs)
+    g.label, g.serial, g.device = "fake", -1, flag.device
+    g.looped = graphs.loops_on_card(loop_parts, mode)
+    g.nodes = {"prologue": 1, "step": 3, "epilogue": 1}
+    g.graphs = {n: Part(n) for n in loop_parts}
+    g.launches = {"prologue": collections.Counter({(wrapper, None): 1}),
+                  "step": collections.Counter({(wrapper, None): 2,
+                                               (wrapper, 5): 1}),
+                  "epilogue": collections.Counter({(wrapper, None): 1})}
+    g.passes, g._counted = {}, 0
+    g.step_count = torch.zeros(1, dtype=torch.int64)
+    g.state = graphs.State()
+    g.state.done = flag
+    return g, wrapper
+
+
+def test_a_pass_on_the_card_counts_its_steps_when_a_counter_is_read(
+        monkeypatch):
+    """The steps of a pass on the card count into the kernels' counters
+    (the condition kernel's too) from the card's step count, read at the
+    first read of a counter after it: each step's launches exactly, no
+    host read."""
+    log = []
+    # a looped configuration whose pass fits takes the kernel's route
+    g, wrapper = _fake_configuration("global", log,
+                                     torch.zeros((), dtype=torch.bool,
+                                                 device="meta"))
+    schedule = iter([3, 1, 30])
+
+    class PassGraph:
+        def __init__(self, g_, flag, code, cap):
+            assert (g_, flag, code, cap) == (g, g.state.done, 0, 30)
+
+        def replay(self):
+            k = next(schedule)
+            log.extend(["prologue"] + ["step"] * k + ["epilogue"])
+            g.step_count += k
+
+    monkeypatch.setattr(loop_cond, "_PassGraph", PassGraph)
+    cond = loop_cond.LOOP_COND
+    st = graphs.STATS
+    before = (cond.launches, cond.launches_replayed, st.host_reads,
+              st.replays, st.device_passes, st.device_steps)
+    with tracing.record() as rec:
+        for _ in range(3):
+            graphs.drive(g, g.state, 30)
+    assert log == (["prologue"] + ["step"] * 3 + ["epilogue"]
+                   + ["prologue", "step", "epilogue"]
+                   + ["prologue"] + ["step"] * 30 + ["epilogue"])
+    assert len(g.passes) == 1
+    assert [s[0] for s in rec.spans] == ["graphs.replay"] * 3
+    assert all(s[4] == {"part": "pass", "graphs": -1} for s in rec.spans)
+    assert g.serial in graphs._UNSETTLED
+    # prologue and epilogue count at the launch; the steps when read
+    assert wrapper._launches == 6
+    assert wrapper.launches == 6 + 3 * 34     # 2 launches and 1 of kk 5
+    assert wrapper.launches_replayed == wrapper.launches
+    assert wrapper.launches_by_kk == {5: 34}
+    assert not graphs._UNSETTLED
+    assert (cond.launches - before[0], cond.launches_replayed - before[1],
+            st.host_reads - before[2], st.replays - before[3],
+            st.device_passes - before[4],
+            st.device_steps - before[5]) == (34, 34, 0, 3, 3, 34)
+
+
+@pytest.mark.parametrize("mode", ["global", "thread_local", "too large"])
+def test_collectives_keep_per_step_replays_others_get_a_pass(monkeypatch,
+                                                             mode):
+    """A configuration captured in "global" mode runs one pass on the card
+    (``loop_cond.run_pass``); one captured in "thread_local" mode
+    (its parts hold collectives), or one whose pass graph would hold more
+    than ``graphs.PASS_OPS`` device operations, replays part by part, its
+    host reading the done flag before every step but the first."""
+    log, calls = [], []
+    done = torch.zeros((), dtype=torch.bool)
+    g, wrapper = _fake_configuration(
+        "global" if mode == "too large" else mode, log, done)
+    # a pass of 4 steps holds 1 + 4 (3 + 1) + 1 = 18 device operations
+    assert g.loops(4) is (mode != "thread_local") and not g.loops(0)
+    if mode == "too large":
+        monkeypatch.setattr(graphs, "PASS_OPS", 18)
+        assert g.loops(4) and not g.loops(5)
+        monkeypatch.setattr(graphs, "PASS_OPS", 17)
+    monkeypatch.setattr(loop_cond, "run_pass",
+                        lambda *operands: calls.append(operands))
+    reads, replays = graphs.STATS.host_reads, graphs.STATS.replays
+    graphs.drive(g, g.state, 4)
+    if mode == "global":
+        assert calls == [(g, 4, "done")] and log == []
+        assert graphs.STATS.host_reads == reads
+    else:
+        assert calls == [] and graphs.STATS.host_reads - reads == 3
+        assert graphs.STATS.replays - replays == 6
+        assert log == ["prologue"] + ["step"] * 4 + ["epilogue"]
+        assert wrapper.launches == 1 + 3 * 4 + 1
+    assert graphs.loops_on_card({"prologue": 0, "epilogue": 0},
+                                "global") is False
 
 
 # --------------------------------------------------------------------------
